@@ -1,0 +1,154 @@
+#!/usr/bin/env python3
+"""Time and profile the PyTorch/CUDA port's main path on one GPU.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_profile.py
+
+It runs ``chip_smoke.py``'s end-to-end configuration (random-init
+flan-t5-large at full width in bf16, 4 synthetic queries x 100 passages of
+128 tokens, setwise heapsort with likelihood scoring, num_child 2, k 10)
+through the CLI's ``make_engine``/``make_ranker``/``load_inputs`` and the
+ranker's ``rerank_many``, all in one process:
+
+1. one warm-up rerank, then four timed reranks in the order plain attention,
+   kernel, kernel, plain: rerank wall on the host clock, docs/s;
+2. one more rerank with the kernel under ``torch.profiler``: device kernel
+   time by kernel family, and the device's busy share in that same run
+   (summed kernel time over the run's own wall; the profiler slows the host,
+   so the unprofiled share is at least this);
+3. the flash kernel's time at B 32, L 640 from CUDA events, its achieved
+   bf16 TFLOP/s, and that as a share of the H100 SXM data sheet's dense bf16
+   peak of 989 TFLOP/s (rated at a 700 W power limit).
+
+It prints the card's name and power limit first and one JSON line of the
+numbers last. Without a CUDA GPU it exits with an error.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+
+import torch
+
+import chip_smoke as smoke  # exits when there is no CUDA GPU
+from llmrankers_tpu.cli.run import load_inputs
+from llmrankers_tpu.models.config import T5Config
+from llmrankers_tpu_torch.cli import run as cli_run
+from llmrankers_tpu_torch.ops import flash
+
+H100_BF16_PEAK_TFLOPS = 989.0  # NVIDIA H100 SXM data sheet, dense, 700 W
+FAMILIES = (  # first match wins, on the lower-cased kernel name
+    ("flash", ("flash_blhd",)),
+    ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90")),
+    ("softmax", ("softmax",)),
+    ("reduce", ("reduce",)),
+    ("copy", ("copy", "cat", "memcpy", "index", "gather", "embedding")),
+)
+
+
+def _family(name: str) -> str:
+    low = name.lower()
+    for family, keys in FAMILIES:
+        if any(k in low for k in keys):
+            return family
+    return "elementwise"
+
+
+def _rerank(args, engine, use_flash: bool):
+    """One rerank of the whole input: (wall seconds, comparisons)."""
+    engine.model.use_flash = use_flash
+    ranker = cli_run.make_ranker(args, engine)
+    first_stage = load_inputs(args, ranker)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    ranker.rerank_many([q for _, q, _ in first_stage], [r for _, _, r in first_stage])
+    torch.cuda.synchronize()
+    return time.perf_counter() - tic, ranker.stats.comparisons
+
+
+def _device_times(prof):
+    """(kernel name, self device microseconds, count) of every device kernel."""
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            rows.append((e.key, us, e.count))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def main():
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    paths = smoke._write_inputs()
+    args = cli_run.parse_args([
+        "run", "--model_name_or_path", "random:t5-large", "--device", "cuda",
+        "--dtype", "bfloat16", "--seed", "0",
+        "--run_path", paths["run.txt"], "--query_file", paths["q.tsv"],
+        "--corpus_file", paths["c.jsonl"], "--save_path", paths["out.txt"],
+        "--hits", str(smoke.N_DOCS), "--query_length", "32",
+        "--passage_length", str(smoke.PASSAGE_TOKENS), "--scoring", "likelihood",
+        "setwise", "--num_child", "2", "--method", "heapsort", "--k", "10",
+    ])
+    engine = cli_run.make_engine(args.run)
+    docs = smoke.N_QUERIES * smoke.N_DOCS
+
+    _rerank(args, engine, True)  # warm-up: first calls of each batch shape
+    walls = {"plain": [], "kernel": []}
+    comparisons = None
+    for label in ("plain", "kernel", "kernel", "plain"):
+        wall, comparisons = _rerank(args, engine, label == "kernel")
+        walls[label].append(wall)
+    print(f"rerank wall, {smoke.N_QUERIES} queries x {smoke.N_DOCS} passages, "
+          f"{comparisons} comparisons: kernel "
+          + ", ".join(f"{w:.4f} s ({docs / w:.2f} docs/s)" for w in walls["kernel"])
+          + "; plain attention "
+          + ", ".join(f"{w:.4f} s ({docs / w:.2f} docs/s)" for w in walls["plain"]))
+
+    flash.flash_mha_blhd.launches = 0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        prof_wall, _ = _rerank(args, engine, True)
+    launches = flash.flash_mha_blhd.launches
+    rows = _device_times(prof)
+    total_us = sum(us for _, us, _ in rows)
+    if total_us == 0:
+        raise RuntimeError("the profiler recorded no device time")
+    busy = total_us / 1e6 / prof_wall
+    by_family = {}
+    for name, us, _ in rows:
+        by_family[_family(name)] = by_family.get(_family(name), 0.0) + us
+    print(f"profiled rerank (kernel): wall {prof_wall:.4f} s, device kernel time "
+          f"{total_us / 1e6:.4f} s, busy share {busy:.4f} under the profiler; "
+          f"flash launches {launches}")
+    for family, us in sorted(by_family.items(), key=lambda x: -x[1]):
+        print(f"  {family:12s} {us / 1e3:10.1f} ms {100 * us / total_us:6.1f}%")
+    for name, us, count in rows[:12]:
+        print(f"  {us / 1e3:9.1f} ms  n={count:6d}  {name[:100]}")
+
+    cfg = T5Config.flan_t5_large()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, L = 32, 640
+    _, _, run_kernel, _ = smoke._attn_case(gen, B, L, L, False,
+                                           smoke.trained_scale_bias(cfg, gen), cfg)
+    ms = smoke._cuda_ms(run_kernel)
+    tflops = 4 * B * cfg.num_heads * L * L * cfg.d_kv / (ms * 1e-3) / 1e12
+    print(f"flash kernel B{B} L{L} H{cfg.num_heads} Dh{cfg.d_kv} bf16: {ms:.4f} ms, "
+          f"{tflops:.2f} TFLOP/s, {100 * tflops / H100_BF16_PEAK_TFLOPS:.2f}% of "
+          f"the {H100_BF16_PEAK_TFLOPS:.0f} TFLOP/s bf16 data-sheet peak")
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "comparisons": comparisons,
+        "wall_kernel_s": walls["kernel"], "wall_plain_s": walls["plain"],
+        "profiled_wall_s": prof_wall, "device_kernel_s": total_us / 1e6,
+        "busy_share_profiled": busy, "flash_launches": launches,
+        "family_ms": {f: us / 1e3 for f, us in by_family.items()},
+        "flash_ms_b32_l640": ms, "flash_tflops": tflops,
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,43 @@
+"""The port's kernel build (``llmrankers_tpu_torch/ops/_build.py``) on a
+machine without nvcc or a GPU: a failed build raises with the compiler's
+output, and the build key follows the sources and flags."""
+import os
+import stat
+
+import pytest
+
+from llmrankers_tpu_torch.ops import _build
+
+
+@pytest.fixture
+def fresh_build(tmp_path, monkeypatch):
+    """An empty build directory and no library loaded in this process."""
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "kernels"))
+    monkeypatch.setattr(_build, "_loaded", {})
+    return tmp_path
+
+
+def test_missing_nvcc_raises(fresh_build, monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(fresh_build / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("flash_blhd")
+
+
+def test_failed_build_raises_with_compiler_output(fresh_build, monkeypatch):
+    fake = fresh_build / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no sm_90a here' >&2\nexit 3\n")
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    with pytest.raises(RuntimeError, match=r"(?s)exit 3.*no sm_90a here"):
+        _build.load("flash_blhd")
+    assert not any(n.endswith(".so") for n in os.listdir(_build.BUILD_DIR))
+
+
+def test_build_key_follows_sources_and_flags(monkeypatch):
+    key = _build._digest()
+    assert key == _build._digest()
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build._digest() != key
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert os.path.exists(os.path.join(_build.CSRC_DIR, "flash_blhd.cu"))
