@@ -1,31 +1,36 @@
 #!/usr/bin/env python3
 """Time and profile the PyTorch/CUDA port's main path on one GPU.
 
-Run from the root of a checkout, with no arguments:
+Run from the root of a checkout:
 
-    python3 chip_profile.py
+    python3 chip_profile.py                  # bf16 flan-t5-large
+    python3 chip_profile.py --quantize int8  # W8A8 int8 flan-t5-xl
 
-It runs ``chip_smoke.py``'s end-to-end configuration (random-init
-flan-t5-large at full width in bf16, 4 synthetic queries x 100 passages of
-128 tokens, setwise heapsort with likelihood scoring, num_child 2, k 10)
-through the CLI's ``make_engine``/``make_ranker``/``load_inputs`` and the
-ranker's ``rerank_many``, all in one process:
+It runs ``chip_smoke.py``'s end-to-end configuration (random-init weights at
+full width, 4 synthetic queries x 100 passages of 128 tokens, setwise
+heapsort with likelihood scoring, num_child 2, k 10; flan-t5-large in bf16,
+or flan-t5-xl in int8 with ``--quantize int8``) through the CLI's
+``make_engine``/``make_ranker``/``load_inputs`` and the ranker's
+``rerank_many``, all in one process:
 
-1. one warm-up rerank, then four timed reranks in the order plain attention,
-   kernel, kernel, plain: rerank wall on the host clock, docs/s;
-2. one more rerank with the kernel under ``torch.profiler``: device kernel
+1. one warm-up rerank, then four timed reranks in the order plain, kernel,
+   kernel, plain: rerank wall on the host clock, docs/s. "Plain" is plain
+   attention in bf16, and every kernel site on the kernel's plain version
+   in int8;
+2. one more rerank with the kernels under ``torch.profiler``: device kernel
    time by kernel family, and the device's busy share in that same run
    (summed kernel time over the run's own wall; the profiler slows the host,
    so the unprofiled share is at least this);
-3. the flash kernel's time at B 32, L 640 from CUDA events, its achieved
-   bf16 TFLOP/s, and that as a share of the H100 SXM data sheet's dense bf16
-   peak of 989 TFLOP/s (rated at a 700 W power limit).
+3. in bf16, the flash kernel's time at B 32, L 640 from CUDA events, its
+   achieved bf16 TFLOP/s, and that as a share of the H100 SXM data sheet's
+   dense bf16 peak of 989 TFLOP/s (rated at a 700 W power limit).
 
 It prints the card's name and power limit first and one JSON line of the
 numbers last. Without a CUDA GPU it exits with an error.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -36,11 +41,12 @@ import chip_smoke as smoke  # exits when there is no CUDA GPU
 from llmrankers_tpu.cli.run import load_inputs
 from llmrankers_tpu.models.config import T5Config
 from llmrankers_tpu_torch.cli import run as cli_run
-from llmrankers_tpu_torch.ops import flash
 
 H100_BF16_PEAK_TFLOPS = 989.0  # NVIDIA H100 SXM data sheet, dense, 700 W
 FAMILIES = (  # first match wins, on the lower-cased kernel name
     ("flash", ("flash_blhd",)),
+    ("int8 gemm", ("int8_gemm",)),
+    ("int8 quantize", ("quantize_blocks",)),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90")),
     ("softmax", ("softmax",)),
     ("reduce", ("reduce",)),
@@ -56,9 +62,16 @@ def _family(name: str) -> str:
     return "elementwise"
 
 
-def _rerank(args, engine, use_flash: bool):
+def _use_kernels(model, on: bool, quantized: bool) -> None:
+    if quantized:
+        model.plain_kernels = not on
+    else:
+        model.use_flash = on
+
+
+def _rerank(args, engine, use_kernels: bool):
     """One rerank of the whole input: (wall seconds, comparisons)."""
-    engine.model.use_flash = use_flash
+    _use_kernels(engine.model, use_kernels, engine.model.quantized)
     ranker = cli_run.make_ranker(args, engine)
     first_stage = load_inputs(args, ranker)
     torch.cuda.synchronize()
@@ -81,19 +94,14 @@ def _device_times(prof):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--quantize", choices=("int8",), default=None)
+    quantize = parser.parse_args().quantize
+    preset = "t5-xl" if quantize else "t5-large"
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
-    paths = smoke._write_inputs()
-    args = cli_run.parse_args([
-        "run", "--model_name_or_path", "random:t5-large", "--device", "cuda",
-        "--dtype", "bfloat16", "--seed", "0",
-        "--run_path", paths["run.txt"], "--query_file", paths["q.tsv"],
-        "--corpus_file", paths["c.jsonl"], "--save_path", paths["out.txt"],
-        "--hits", str(smoke.N_DOCS), "--query_length", "32",
-        "--passage_length", str(smoke.PASSAGE_TOKENS), "--scoring", "likelihood",
-        "setwise", "--num_child", "2", "--method", "heapsort", "--k", "10",
-    ])
+    args = smoke.cli_args(smoke._write_inputs(), preset, quantize)
     engine = cli_run.make_engine(args.run)
     docs = smoke.N_QUERIES * smoke.N_DOCS
 
@@ -103,17 +111,18 @@ def main():
     for label in ("plain", "kernel", "kernel", "plain"):
         wall, comparisons = _rerank(args, engine, label == "kernel")
         walls[label].append(wall)
-    print(f"rerank wall, {smoke.N_QUERIES} queries x {smoke.N_DOCS} passages, "
-          f"{comparisons} comparisons: kernel "
+    print(f"rerank wall, random:{preset} {quantize or 'bf16'}, {smoke.N_QUERIES} "
+          f"queries x {smoke.N_DOCS} passages, {comparisons} comparisons: kernels "
           + ", ".join(f"{w:.4f} s ({docs / w:.2f} docs/s)" for w in walls["kernel"])
-          + "; plain attention "
+          + "; plain versions "
           + ", ".join(f"{w:.4f} s ({docs / w:.2f} docs/s)" for w in walls["plain"]))
 
-    flash.flash_mha_blhd.launches = 0
+    for fn in smoke.COUNTERS.values():
+        fn.launches = 0
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         prof_wall, _ = _rerank(args, engine, True)
-    launches = flash.flash_mha_blhd.launches
+    launches = {name: fn.launches for name, fn in smoke.COUNTERS.items()}
     rows = _device_times(prof)
     total_us = sum(us for _, us, _ in rows)
     if total_us == 0:
@@ -122,32 +131,35 @@ def main():
     by_family = {}
     for name, us, _ in rows:
         by_family[_family(name)] = by_family.get(_family(name), 0.0) + us
-    print(f"profiled rerank (kernel): wall {prof_wall:.4f} s, device kernel time "
+    print(f"profiled rerank (kernels): wall {prof_wall:.4f} s, device kernel time "
           f"{total_us / 1e6:.4f} s, busy share {busy:.4f} under the profiler; "
-          f"flash launches {launches}")
+          f"launches {launches}")
     for family, us in sorted(by_family.items(), key=lambda x: -x[1]):
-        print(f"  {family:12s} {us / 1e3:10.1f} ms {100 * us / total_us:6.1f}%")
-    for name, us, count in rows[:12]:
+        print(f"  {family:14s} {us / 1e3:10.1f} ms {100 * us / total_us:6.1f}%")
+    for name, us, count in rows[:14]:
         print(f"  {us / 1e3:9.1f} ms  n={count:6d}  {name[:100]}")
 
-    cfg = T5Config.flan_t5_large()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    B, L = 32, 640
-    _, _, run_kernel, _ = smoke._attn_case(gen, B, L, L, False,
-                                           smoke.trained_scale_bias(cfg, gen), cfg)
-    ms = smoke._cuda_ms(run_kernel)
-    tflops = 4 * B * cfg.num_heads * L * L * cfg.d_kv / (ms * 1e-3) / 1e12
-    print(f"flash kernel B{B} L{L} H{cfg.num_heads} Dh{cfg.d_kv} bf16: {ms:.4f} ms, "
-          f"{tflops:.2f} TFLOP/s, {100 * tflops / H100_BF16_PEAK_TFLOPS:.2f}% of "
-          f"the {H100_BF16_PEAK_TFLOPS:.0f} TFLOP/s bf16 data-sheet peak")
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "comparisons": comparisons,
+    out = {
+        "device": torch.cuda.get_device_name(0), "preset": preset,
+        "quantize": quantize, "comparisons": comparisons,
         "wall_kernel_s": walls["kernel"], "wall_plain_s": walls["plain"],
         "profiled_wall_s": prof_wall, "device_kernel_s": total_us / 1e6,
-        "busy_share_profiled": busy, "flash_launches": launches,
+        "busy_share_profiled": busy, "launches": launches,
         "family_ms": {f: us / 1e3 for f, us in by_family.items()},
-        "flash_ms_b32_l640": ms, "flash_tflops": tflops,
-    }))
+    }
+    if not quantize:
+        cfg = T5Config.flan_t5_large()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        B, L = 32, 640
+        _, _, run_kernel, _ = smoke._attn_case(gen, B, L, L, False,
+                                               smoke.trained_scale_bias(cfg, gen), cfg)
+        ms = smoke._cuda_ms(run_kernel)
+        tflops = 4 * B * cfg.num_heads * L * L * cfg.d_kv / (ms * 1e-3) / 1e12
+        print(f"flash kernel B{B} L{L} H{cfg.num_heads} Dh{cfg.d_kv} bf16: {ms:.4f} ms, "
+              f"{tflops:.2f} TFLOP/s, {100 * tflops / H100_BF16_PEAK_TFLOPS:.2f}% of "
+              f"the {H100_BF16_PEAK_TFLOPS:.0f} TFLOP/s bf16 data-sheet peak")
+        out.update(flash_ms_b32_l640=ms, flash_tflops=tflops)
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

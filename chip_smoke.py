@@ -5,25 +5,42 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from ``llmrankers_tpu_torch/csrc`` and then,
-one line per phase:
+It builds the port's CUDA kernels from ``llmrankers_tpu_torch/csrc`` (one
+nvcc per source, side by side) and then, one line per phase:
 
 1. prints the device, and the card's name and power limit from nvidia-smi;
-2. builds the flash kernel with nvcc and prints the build time;
-3. holds the kernel against its plain PyTorch version at the main path's
-   shapes in bf16 (flan-t5-large encoder: B 32, L 512 and 640, H 16, Dh 64,
+2. builds ``flash_blhd.cu`` and ``int8_fusedq.cu`` and prints the build time
+   and ptxas's registers and spills;
+3. B1: holds the flash kernel against its plain PyTorch version at the bf16
+   path's shapes (flan-t5-large encoder: B 32, L 512 and 640, H 16, Dh 64,
    a rel-pos bias table of std 1 as in a trained model, right padding, one
    all-padding row that must come out as exact zeros, one causal case with
    Lq != Lk), checks that a wrong bias (none, or the next head's, key's or
    row's) fails the same gate, and times kernel and plain version;
-4. runs ``score_labels`` on a random-init flan-t5-large at full width in bf16
+4. B2: the packed flash at flan-t5-xl's encoder shape (B 32, L 640, H 32,
+   Dh 64, qkv [32, 640, 6144]) against its plain version, with k read at
+   q's offset and v at k's as negative controls;
+5. B3: the W8A8 GEMM at the xl sites qkv and wo (wo with and without a
+   residual), every element within one bf16 ulp of the plain version; a
+   whole-row activation scale and column scales rolled by one must fail;
+6. B4: the gated GEMM at xl wi_g with gelu_new, the same gate plus a stated
+   tanh allowance; swapped halves and relu must fail;
+7. ``score_labels`` on a random-init flan-t5-large at full width in bf16
    (its encoder bias table redrawn at std 1), once through the kernel and
-   once with plain attention, and compares the encoder outputs and the
-   label logits; without its bias the encoder output must fail the gate;
-5. reranks 4 synthetic queries x 100 passages of 128 tokens end to end
-   through ``llmrankers_tpu_torch.cli.run.main`` (setwise heapsort,
-   likelihood, num_child 2, k 10), counting the kernel's launches;
-6. prints a JSON line of the kernels, then ``{"ok": true, "device": ...}``.
+   once with plain attention: encoder outputs and label logits, with a
+   no-bias control at the encoder output;
+8. reranks 4 synthetic queries x 100 passages of 128 tokens end to end
+   through ``llmrankers_tpu_torch.cli.run.main`` on flan-t5-large in bf16
+   (setwise heapsort, likelihood, num_child 2, k 10), counting B1's launches;
+9. ``score_labels`` on a random-init flan-t5-xl at full width in W8A8 int8
+   (encoder table at std 1), kernels against the same int8 path on their
+   plain versions: encoder output, label logits, winners;
+10. the decision-parity battery at xl: bf16 against int8 label winners on
+    64 prompts, overall and on the rows with a clear bf16 margin;
+11. the same end-to-end rerank on flan-t5-xl with ``--quantize int8``,
+    counting the launches of B2, B3 and B4;
+12. prints a JSON line of the four kernels, then
+    ``{"ok": true, "device": ...}``.
 
 Any failed check raises and the exit code is not 0. Without a CUDA GPU it
 exits with an error before printing anything. It imports nothing of JAX.
@@ -45,24 +62,46 @@ if not torch.cuda.is_available():
 
 from llmrankers_tpu.models.config import T5Config  # noqa: E402
 from llmrankers_tpu_torch.cli import run as cli_run  # noqa: E402
+from llmrankers_tpu_torch.engine import parity  # noqa: E402
 from llmrankers_tpu_torch.engine.engine import ScoringEngine  # noqa: E402
 from llmrankers_tpu_torch.engine.tokenizer import ByteTokenizer  # noqa: E402
 from llmrankers_tpu_torch.models import t5  # noqa: E402
-from llmrankers_tpu_torch.ops import _build, flash  # noqa: E402
+from llmrankers_tpu_torch.models.quant import quantize_weight  # noqa: E402
+from llmrankers_tpu_torch.ops import _build, flash, int8_matmul  # noqa: E402
 from llmrankers_tpu_torch.rankers.prompts import setwise_prompt  # noqa: E402
 from llmrankers_tpu_torch.rankers.setwise import SetwiseLlmRanker  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
-KERNEL_TOL = 0.05  # bf16 kernel vs plain, max |diff| on rows with a valid key
-# Label logits through 24+24 bf16 layers, kernel vs plain attention: each
-# layer's attention output may differ by an ulp of bf16 (2^-8 relative), and
-# the differences compound through the residual stream; logits are O(1).
+N_PHASES = 12
+SOURCES = ("flash_blhd", "int8_fusedq")
+KERNEL_TOL = 0.05  # bf16 flash kernel vs plain, max |diff| on rows with a valid key
+# Label logits through 24+24 bf16 layers, kernel vs plain: each layer's
+# output may differ by an ulp of bf16 (2^-8 relative), and the differences
+# compound through the residual stream (and, in int8, flip round-half int8
+# values that move their rows further); logits are O(1).
 LOGIT_TOL = 0.25
 # Encoder output, kernel vs plain: ||a - b|| / ||b|| over the valid positions,
 # bf16 rounding (2^-8 relative) compounded through 24 layers.
 ENC_TOL = 0.05
+# The same in int8: a bf16 difference that moves an activation across a
+# round-half boundary flips its int8 value, which moves the row at the next
+# site and flips more of its values, so differences compound faster.
+INT8_ENC_TOL = 0.1
+# W8A8 kernels vs plain, per element: the int8 values and int32 sums are
+# exact and the f32 steps are the same, so only the bf16 output rounding may
+# differ: |diff| <= 2^-7 |want| + 1e-6, one bf16 ulp.
+BF16_ULP = 2.0**-7
+# B4 adds, per element, 1e-5 * max |want|: the kernel's tanhf against
+# torch.tanh, near tanh = -1 where gelu_new cancels.
+TANH_ALLOWANCE = 1e-5
 N_QUERIES, N_DOCS, PASSAGE_TOKENS = 4, 100, 128
+COUNTERS = {
+    "flash_mha_blhd": flash.flash_mha_blhd,
+    "flash_mha_packed": flash.flash_mha_packed,
+    "quantized_matmul": int8_matmul.quantized_matmul,
+    "gated_matmul": int8_matmul.gated_matmul,
+}
 
 
 def _cuda_ms(fn, iters=20, warmup=3) -> float:
@@ -77,13 +116,27 @@ def _cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _in_turns(run_kernel, run_plain, plain_iters=20):
+    """ms of kernel and plain version, timed plain, kernel, kernel, plain:
+    (kernel mean, plain mean, the four runs)."""
+    plain = [_cuda_ms(run_plain, plain_iters, 1)]
+    kern = [_cuda_ms(run_kernel), _cuda_ms(run_kernel)]
+    plain.append(_cuda_ms(run_plain, plain_iters, 1))
+    return sum(kern) / 2, sum(plain) / 2, (kern, plain)
+
+
+def _turns_text(runs) -> str:
+    kern, plain = runs
+    return f"{kern[0]:.4f}/{kern[1]:.4f} vs {plain[0]:.4f}/{plain[1]:.4f}"
+
+
 def phase_device():
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    print(f"[1/6] device: {name}, count {torch.cuda.device_count()}, "
+    print(f"[1/{N_PHASES}] device: {name}, count {torch.cuda.device_count()}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
     return name
@@ -91,12 +144,18 @@ def phase_device():
 
 def phase_build():
     tic = time.perf_counter()
-    _build.load("flash_blhd")
+    _build.load_all(SOURCES)
     dt = time.perf_counter() - tic
-    regs = [ln.split("Used ")[1].split(",")[0] for ln in
-            _build.build_log("flash_blhd").splitlines() if "Used " in ln]
-    print(f"[2/6] built flash_blhd.cu with nvcc in {dt:.2f} s "
-          f"(ptxas, Dh 128..16: {'; '.join(regs) or 'already built'})")
+    parts = []
+    for name in SOURCES:
+        log = _build.build_log(name).splitlines()
+        regs = [ln.split("Used ")[1].split(",")[0] for ln in log if "Used " in ln]
+        spills = [int(ln.split(" bytes spill stores")[0].split(",")[-1])
+                  for ln in log if " bytes spill stores" in ln]
+        parts.append(f"{name}.cu: {', '.join(regs) or 'already built'}; "
+                     f"spill stores {max(spills, default=0)} bytes")
+    print(f"[2/{N_PHASES}] built {len(SOURCES)} sources with nvcc side by side in "
+          f"{dt:.2f} s (ptxas per kernel: {' | '.join(parts)})")
 
 
 def _attn_case(gen, B, Lq, Lk, causal, table, cfg):
@@ -157,19 +216,169 @@ def phase_kernel(cfg):
         errs.append(err)
         ctls.append(ctl)
         timed = (run_kernel, run_plain)  # the last case: B 32, L 640
-    run_kernel, run_plain = timed
-    plain = [_cuda_ms(run_plain)]
-    kern = [_cuda_ms(run_kernel), _cuda_ms(run_kernel)]
-    plain.append(_cuda_ms(run_plain))
-    ms, plain_ms = sum(kern) / 2, sum(plain) / 2
-    print(f"[3/6] flash kernel vs plain, bf16, H16 Dh64, rel-pos bias table of std 1: "
-          f"max |diff| {', '.join(f'{e:.4g}' for e in errs)} (L512, causal 512x640, "
-          f"L640; tol {KERNEL_TOL}); against a wrong bias (none, next head, key or "
-          f"row) at least {min(ctls):.4g}, over tol; all-padding rows exactly 0; "
-          f"at B32 L640 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, "
-          f"mean of 20 after warm-up, two runs each: {kern[0]:.4f}/{kern[1]:.4f} vs "
-          f"{plain[0]:.4f}/{plain[1]:.4f})")
+    ms, plain_ms, runs = _in_turns(*timed)
+    print(f"[3/{N_PHASES}] B1 flash kernel vs plain, bf16, H16 Dh64, rel-pos bias "
+          f"table of std 1: max |diff| {', '.join(f'{e:.4g}' for e in errs)} (L512, "
+          f"causal 512x640, L640; tol {KERNEL_TOL}); against a wrong bias (none, next "
+          f"head, key or row) at least {min(ctls):.4g}, over tol; all-padding rows "
+          f"exactly 0; at B32 L640 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA "
+          f"events, mean of 20 after warm-up, two runs each: {_turns_text(runs)})")
     return max(errs), ms, plain_ms
+
+
+def phase_packed(gen):
+    """B2 at flan-t5-xl's encoder shape."""
+    cfg = T5Config.flan_t5_xl()
+    B, L, H, Dh = 32, 640, cfg.num_heads, cfg.d_kv
+    HD = H * Dh
+    dev = "cuda"
+    q = torch.randn(B, L, HD, generator=gen, device=dev) * Dh**-0.5
+    k = torch.randn(B, L, HD, generator=gen, device=dev)
+    v = torch.randn(B, L, HD, generator=gen, device=dev)
+    qkv = torch.cat([q, k, v], dim=-1).bfloat16()
+    lens = torch.randint(L // 2, L + 1, (B,), generator=gen, device=dev)
+    mask = (torch.arange(L, device=dev)[None, :] < lens[:, None]).int()
+    mask[-1] = 0  # a batch-padding row
+    bias = t5.compute_bias(trained_scale_bias(cfg, gen), L, L, True, cfg)
+    kw = dict(kv_mask=mask.contiguous(), bias=bias, scale=1.0)
+    got = flash.flash_mha_packed(qkv, H, **kw)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all() or got.shape != (B, L, HD):
+        raise AssertionError(f"packed kernel output: shape {tuple(got.shape)} or not finite")
+    if got[-1].count_nonzero().item() != 0:
+        raise AssertionError("packed kernel: all-padding row is not exactly 0")
+
+    def err_against(packed):
+        want = flash.flash_mha_packed_plain(packed, H, **kw)
+        return (got[:-1].float() - want[:-1].float()).abs().max().item()
+
+    err = err_against(qkv)
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"packed kernel vs plain max |diff| {err} > {KERNEL_TOL}")
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    ctl = {"k at q's offset": err_against(torch.cat([qb, qb, vb], -1)),
+           "v at k's offset": err_against(torch.cat([qb, kb, kb], -1))}
+    blind = [name for name, e in ctl.items() if not e > KERNEL_TOL]
+    if blind:
+        raise AssertionError(f"gate {KERNEL_TOL} passes a misread qkv {blind}: {ctl}")
+    del q, k, v, qb, kb, vb
+    ms, plain_ms, runs = _in_turns(lambda: flash.flash_mha_packed(qkv, H, **kw),
+                                   lambda: flash.flash_mha_packed_plain(qkv, H, **kw), 5)
+    ctl_k, ctl_v = ctl.values()
+    print(f"[4/{N_PHASES}] B2 packed flash vs plain, bf16, qkv [{B}, {L}, {3 * HD}] "
+          f"(xl: H {H}, Dh {Dh}), rel-pos table of std 1, right padding: max |diff| "
+          f"{err:.4g} (tol {KERNEL_TOL}); k read at q's offset {ctl_k:.4g}, v at k's "
+          f"{ctl_v:.4g}, both over tol; all-padding row exactly 0; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms (CUDA events, two runs each: {_turns_text(runs)})")
+    return err, ms, plain_ms
+
+
+def _int8_operands(gen, M, K, N):
+    """bf16 activations [M, K] with per-row scales, outlier columns and one
+    all-zero row, and a per-channel int8 weight [K, N] with f32 scales."""
+    dev = "cuda"
+    x = torch.randn(M, K, generator=gen, device=dev)
+    x = x * (0.5 + 2 * torch.rand(M, 1, generator=gen, device=dev))
+    x[:, ::97] *= 8.0
+    x[7] = 0.0
+    w8, sw = quantize_weight(torch.randn(K, N, generator=gen, device=dev) * K**-0.5)
+    return x.bfloat16(), w8.contiguous(), sw.contiguous()
+
+
+def _ulp_gate(got, want, allowance=0.0):
+    """(max |diff|, elements over one bf16 ulp of |want| + 1e-6 + allowance)."""
+    d = (got.float() - want.float()).abs()
+    lim = BF16_ULP * want.float().abs() + 1e-6 + allowance
+    return d.max().item(), int((d > lim).sum().item())
+
+
+def phase_quantized_matmul(gen):
+    """B3 at the flan-t5-xl sites qkv and wo (M = 32 rows x 640 tokens)."""
+    M = 32 * 640
+    cases, timed = [], {}
+    for site, K, N, with_res in (("qkv", 2048, 6144, False), ("wo", 5120, 2048, False),
+                                 ("wo+res", 5120, 2048, True)):
+        x, w8, sw = _int8_operands(gen, M, K, N)
+        res = (torch.randn(M, N, generator=gen, device="cuda").bfloat16()
+               if with_res else None)
+        got = int8_matmul.quantized_matmul(x, w8, sw, residual=res)
+        torch.cuda.synchronize()
+        want = int8_matmul.quantized_matmul_plain(x, w8, sw, res)
+        if not torch.isfinite(got).all() or got.shape != (M, N):
+            raise AssertionError(f"B3 {site}: shape {tuple(got.shape)} or not finite")
+        zero = torch.zeros(N, device="cuda") if res is None else res[7].float()
+        if not torch.equal(got[7].float(), zero):
+            raise AssertionError(f"B3 {site}: an all-zero row is not 0*sw (+ residual)")
+        err, bad = _ulp_gate(got, want)
+        if bad:
+            raise AssertionError(f"B3 {site}: {bad} elements over one bf16 ulp, "
+                                 f"max |diff| {err}")
+        kb = int8_matmul.kblock(K, N, x.dtype, with_res)
+        controls = {
+            "whole-row scale": int8_matmul.quantized_matmul_plain(x, w8, sw, res, kblock=K),
+            "sw rolled": int8_matmul.quantized_matmul_plain(x, w8, sw.roll(1, 1), res),
+        }
+        ctl = {name: _ulp_gate(got, c)[1] for name, c in controls.items()}
+        del controls, want
+        blind = [name for name, n in ctl.items() if n == 0]
+        if blind:
+            raise AssertionError(f"B3 {site}: the gate passes {blind}")
+        ms, plain_ms, runs = _in_turns(
+            lambda: int8_matmul.quantized_matmul(x, w8, sw, residual=res),
+            lambda: int8_matmul.quantized_matmul_plain(x, w8, sw, res), 3)
+        tops = 2 * M * K * N / (ms * 1e-3) / 1e12
+        cases.append((site, K, N, kb, err, ctl, ms, plain_ms, tops, runs))
+        timed[site] = (err, ms, plain_ms)
+        del x, w8, sw, res, got
+    text = "; ".join(
+        f"{site} [{M}, {K}]x[{K}, {N}] K-block {kb}: max |diff| {err:.4g}, "
+        f"over the gate with a whole-row scale {ctl['whole-row scale']} and with sw "
+        f"rolled {ctl['sw rolled']} elements; kernel {ms:.4f} ms ({tops:.1f} TOP/s), "
+        f"plain {plain_ms:.4f} ms ({_turns_text(runs)})"
+        for site, K, N, kb, err, ctl, ms, plain_ms, tops, runs in cases)
+    print(f"[5/{N_PHASES}] B3 W8A8 GEMM vs plain, bf16 x, gate |diff| <= 2^-7 |want| "
+          f"+ 1e-6 on every element; all-zero rows exactly 0*sw (+ residual); {text}")
+    err = max(e for e, _, _ in timed.values())
+    return err, timed["qkv"][1], timed["qkv"][2]
+
+
+def phase_gated_matmul(gen):
+    """B4 at flan-t5-xl's wi_g: [20480, 2048] x [2048, 2 x 5120], gelu_new."""
+    M, K, N = 32 * 640, 2048, 5120
+    x, wp, sp = _int8_operands(gen, M, K, 2 * N)
+    got = int8_matmul.gated_matmul(x, wp, sp, act="gelu_new")
+    torch.cuda.synchronize()
+    want = int8_matmul.gated_matmul_plain(x, wp, sp, "gelu_new")
+    if not torch.isfinite(got).all() or got.shape != (M, N):
+        raise AssertionError(f"B4: shape {tuple(got.shape)} or not finite")
+    allowance = TANH_ALLOWANCE * want.float().abs().max().item()
+    err, bad = _ulp_gate(got, want, allowance)
+    if bad:
+        raise AssertionError(f"B4: {bad} elements over the gate, max |diff| {err}")
+    relu = int8_matmul.gated_matmul(x, wp, sp, act="relu")
+    relu_err, relu_bad = _ulp_gate(relu, int8_matmul.gated_matmul_plain(x, wp, sp, "relu"))
+    if relu_bad:
+        raise AssertionError(f"B4 relu: {relu_bad} elements over the gate")
+    swapped = (torch.cat([wp[:, N:], wp[:, :N]], 1), torch.cat([sp[:, N:], sp[:, :N]], 1))
+    controls = {"halves swapped": int8_matmul.gated_matmul_plain(x, *swapped, "gelu_new"),
+                "relu for gelu_new": int8_matmul.gated_matmul_plain(x, wp, sp, "relu")}
+    ctl = {name: _ulp_gate(got, c, allowance)[1] for name, c in controls.items()}
+    del controls, want, relu, swapped
+    blind = [name for name, n in ctl.items() if n == 0]
+    if blind:
+        raise AssertionError(f"B4: the gate passes {blind}")
+    ms, plain_ms, runs = _in_turns(
+        lambda: int8_matmul.gated_matmul(x, wp, sp, act="gelu_new"),
+        lambda: int8_matmul.gated_matmul_plain(x, wp, sp, "gelu_new"), 3)
+    tops = 2 * M * K * 2 * N / (ms * 1e-3) / 1e12
+    print(f"[6/{N_PHASES}] B4 gated W8A8 GEMM vs plain, wi_g [{M}, {K}]x[{K}, 2x{N}] "
+          f"K-block {int8_matmul.kblock(K, N, x.dtype, gated=True)}, gelu_new: max |diff| "
+          f"{err:.4g} (gate 2^-7 |want| + 1e-6 + tanh allowance {allowance:.4g}); relu "
+          f"{relu_err:.4g}; over the gate with the halves swapped "
+          f"{ctl['halves swapped']} and with relu for gelu_new "
+          f"{ctl['relu for gelu_new']} elements; kernel {ms:.4f} ms ({tops:.1f} TOP/s), "
+          f"plain {plain_ms:.4f} ms ({_turns_text(runs)})")
+    return err, ms, plain_ms
 
 
 def _passage(i: int, text: str) -> str:
@@ -177,24 +386,63 @@ def _passage(i: int, text: str) -> str:
     return f"{text}{filler} ({i})"
 
 
-def phase_score_labels(cfg, model):
-    tok = ByteTokenizer(cfg.vocab_size)
-    engine = ScoringEngine("t5", cfg, model, tok)
+def _score_rows(engine):
+    """32 setwise prompts of three 128-token passages (the 640 bucket), the
+    first three labels and the ranker's decoder prefix."""
+    tok = engine.tokenizer
     ranker = SetwiseLlmRanker(engine, num_child=2, k=10, scoring="likelihood")
     rows = []
     for i in range(32):
         docs = [tok.truncate(_passage(j, f"this passage talks about topic {j}"),
                              PASSAGE_TOKENS) for j in (3 * i, 3 * i + 1, 3 * i + 2)]
         rows.append(tok.encode(setwise_prompt(f"what is topic {i}", docs)))
-    labels, prefix = ranker.label_ids[:3], ranker.decoder_prefix
+    return rows, ranker.label_ids[:3], ranker.decoder_prefix
+
+
+def _encoder_out(engine, rows, use_flash=True, plain=False):
+    """The encoder's output at the valid positions of the padded rows, fp32."""
+    ids, mask, _, _ = engine._pad_batch(rows)
+    ids, mask = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+    engine.model.use_flash, engine.model.plain_kernels = use_flash, plain
+    with torch.inference_mode():
+        out = engine.model.encode(ids, mask)[mask.bool()].float()
+    engine.model.use_flash, engine.model.plain_kernels = True, False
+    return out
+
+
+def _rel(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def _compare_logits(a, b, what):
+    if a.shape != (32, 3) or not (np.isfinite(a).all() and np.isfinite(b).all()):
+        raise AssertionError(f"{what} label logits: shape {a.shape} or not finite")
+    diff = float(np.abs(a - b).max())
+    top2 = np.sort(b, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > LOGIT_TOL
+    agree = a.argmax(1) == b.argmax(1)
+    if not diff <= LOGIT_TOL or not agree[clear].all():
+        raise AssertionError(f"{what} label logits: max |diff| {diff}, winners "
+                             f"differ on clear rows {np.where(clear & ~agree)}")
+    return diff, int(agree.sum()), int(clear.sum())
+
+
+def _timed_scores(engine, rows, labels, prefix):
+    engine.score_labels(rows, labels, prefix)  # warm-up
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    logits = engine.score_labels(rows, labels, prefix)
+    return logits, time.perf_counter() - tic
+
+
+def phase_score_labels(cfg, model):
+    engine = ScoringEngine("t5", cfg, model, ByteTokenizer(cfg.vocab_size))
+    rows, labels, prefix = _score_rows(engine)
     logits, wall = {}, {}
     for use_flash in (True, False):
         model.use_flash = use_flash
-        engine.score_labels(rows, labels, prefix)  # warm-up
-        torch.cuda.synchronize()
-        tic = time.perf_counter()
-        logits[use_flash] = engine.score_labels(rows, labels, prefix)
-        wall[use_flash] = time.perf_counter() - tic
+        logits[use_flash], wall[use_flash] = _timed_scores(engine, rows, labels, prefix)
+    model.use_flash = True
     # The label logits of a random-init model hardly depend on the encoder
     # (without its bias they moved by 0.14, under LOGIT_TOL), so the bias
     # path is held at the encoder output, with a negative control there.
@@ -203,42 +451,57 @@ def phase_score_labels(cfg, model):
     model.encoder.rel_bias.zero_()
     enc_no_bias = _encoder_out(engine, rows, True)
     model.encoder.rel_bias.copy_(table)
-    model.use_flash = True
-    enc_err, enc_ctl = (float((x - enc[False]).norm() / enc[False].norm())
-                        for x in (enc[True], enc_no_bias))
+    enc_err, enc_ctl = _rel(enc[True], enc[False]), _rel(enc_no_bias, enc[False])
     if not enc_err <= ENC_TOL:
         raise AssertionError(f"encoder output kernel vs plain: relative error "
                              f"{enc_err} > {ENC_TOL}")
     if not enc_ctl > ENC_TOL:
         raise AssertionError(f"gate {ENC_TOL} passes the encoder without its "
                              f"bias: relative error {enc_ctl}")
-    a, b = logits[True], logits[False]
-    if a.shape != (32, 3) or not (np.isfinite(a).all() and np.isfinite(b).all()):
-        raise AssertionError(f"label logits: shape {a.shape} or not finite")
-    diff = float(np.abs(a - b).max())
-    top2 = np.sort(b, axis=1)[:, -2:]
-    clear = (top2[:, 1] - top2[:, 0]) > LOGIT_TOL
-    agree = (a.argmax(1) == b.argmax(1))
-    if not diff <= LOGIT_TOL or not agree[clear].all():
-        raise AssertionError(f"label logits kernel vs plain: max |diff| {diff}, "
-                             f"winners differ on clear rows {np.where(clear & ~agree)}")
-    print(f"[4/6] score_labels, flan-t5-large random init bf16 (encoder rel-pos "
-          f"table of std 1), 32 rows x {max(map(len, rows))} tokens (L bucket 640): "
-          f"encoder output kernel vs plain relative error {enc_err:.4g} (tol "
-          f"{ENC_TOL}), without the bias {enc_ctl:.4g}; label logits kernel vs "
-          f"plain max |diff| {diff:.4g} (tol {LOGIT_TOL}); winners agree on "
-          f"{int(agree.sum())}/32 rows, {int(clear.sum())} rows with margin > tol "
-          f"all agree; wall {wall[True] * 1e3:.1f} ms with kernel, "
-          f"{wall[False] * 1e3:.1f} ms plain")
+    diff, agree, clear = _compare_logits(logits[True], logits[False], "bf16")
+    print(f"[7/{N_PHASES}] score_labels, flan-t5-large random init bf16 (encoder "
+          f"rel-pos table of std 1), 32 rows x {max(map(len, rows))} tokens (L bucket "
+          f"640): encoder output kernel vs plain relative error {enc_err:.4g} (tol "
+          f"{ENC_TOL}), without the bias {enc_ctl:.4g}; label logits kernel vs plain "
+          f"max |diff| {diff:.4g} (tol {LOGIT_TOL}); winners agree on {agree}/32 rows, "
+          f"{clear} rows with margin > tol all agree; wall {wall[True] * 1e3:.1f} ms "
+          f"with kernel, {wall[False] * 1e3:.1f} ms plain")
 
 
-def _encoder_out(engine, rows, use_flash):
-    """The encoder's output at the valid positions of the padded rows, fp32."""
-    ids, mask, _, _ = engine._pad_batch(rows)
-    ids, mask = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
-    engine.model.use_flash = use_flash
-    with torch.inference_mode():
-        return engine.model.encode(ids, mask)[mask.bool()].float()
+def phase_int8_score_labels(cfg, model):
+    """The xl int8 path with its kernels against the same path on the
+    kernels' plain versions."""
+    engine = ScoringEngine("t5", cfg, model, ByteTokenizer(cfg.vocab_size), quantize="int8")
+    rows, labels, prefix = _score_rows(engine)
+    logits, wall = {}, {}
+    for plain in (False, True):
+        engine.model.plain_kernels = plain
+        logits[plain], wall[plain] = _timed_scores(engine, rows, labels, prefix)
+    engine.model.plain_kernels = False
+    enc_err = _rel(_encoder_out(engine, rows), _encoder_out(engine, rows, plain=True))
+    if not enc_err <= INT8_ENC_TOL:
+        raise AssertionError(f"int8 encoder output kernels vs plain: relative error "
+                             f"{enc_err} > {INT8_ENC_TOL}")
+    diff, agree, clear = _compare_logits(logits[False], logits[True], "int8")
+    print(f"[9/{N_PHASES}] score_labels, flan-t5-xl random init W8A8 int8 (bf16 "
+          f"activations, encoder rel-pos table of std 1), 32 rows x "
+          f"{max(map(len, rows))} tokens: encoder output kernels vs plain versions "
+          f"relative error {enc_err:.4g} (tol {INT8_ENC_TOL}); label logits max |diff| "
+          f"{diff:.4g} (tol {LOGIT_TOL}); winners agree on {agree}/32 rows, {clear} rows "
+          f"with margin > tol all agree; wall {wall[False] * 1e3:.1f} ms with the "
+          f"kernels, {wall[True] * 1e3:.1f} ms on the plain versions")
+
+
+def phase_parity(model):
+    tic = time.perf_counter()
+    res = parity.t5_int8_decision_parity(model)
+    if res["winner_agreement_clear_margin"] != 1.0:
+        raise AssertionError(f"int8 decision parity on clear-margin rows: {res}")
+    print(f"[10/{N_PHASES}] decision parity, flan-t5-xl random init, bf16 vs W8A8 int8, "
+          f"{res['prompts']} prompts (bench.py's battery): label winners agree on "
+          f"{res['winner_agreement']:.4f} of all rows and "
+          f"{res['winner_agreement_clear_margin']:.4f} of the rows with a bf16 margin "
+          f"above the median ({time.perf_counter() - tic:.1f} s)")
 
 
 def _write_inputs():
@@ -263,26 +526,41 @@ def _write_inputs():
     return paths
 
 
-def phase_end_to_end():
-    paths = _write_inputs()
-    args = cli_run.parse_args([
-        "run", "--model_name_or_path", "random:t5-large", "--device", "cuda",
-        "--dtype", "bfloat16", "--seed", "0",
+def cli_args(paths, preset, quantize=None):
+    extra = ["--quantize", quantize] if quantize else []
+    return cli_run.parse_args([
+        "run", "--model_name_or_path", f"random:{preset}", "--device", "cuda",
+        "--dtype", "bfloat16", "--seed", "0", *extra,
         "--run_path", paths["run.txt"], "--query_file", paths["q.tsv"],
         "--corpus_file", paths["c.jsonl"], "--save_path", paths["out.txt"],
         "--hits", str(N_DOCS), "--query_length", "32",
         "--passage_length", str(PASSAGE_TOKENS), "--scoring", "likelihood",
         "setwise", "--num_child", "2", "--method", "heapsort", "--k", "10",
     ])
+
+
+def phase_end_to_end(n, preset, quantize=None):
+    """Rerank through the CLI; every kernel count is set to 0 just before
+    and read just after."""
+    paths = _write_inputs()
+    args = cli_args(paths, preset, quantize)
     torch.cuda.reset_peak_memory_stats()
-    flash.flash_mha_blhd.launches = 0
+    for fn in COUNTERS.values():
+        fn.launches = 0
     report = cli_run.main(args)
     torch.cuda.synchronize()
-    launches = flash.flash_mha_blhd.launches
-    if launches == 0:
-        raise AssertionError("the main path never launched the flash kernel")
-    if launches % T5Config.flan_t5_large().num_layers:
-        raise AssertionError(f"{launches} launches is not a whole number of encodes")
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    layers = cli_run.PRESETS[preset]().num_layers
+    path = (("flash_mha_packed", "quantized_matmul", "gated_matmul") if quantize
+            else ("flash_mha_blhd",))
+    never = [name for name in path if launches[name] == 0]
+    if never:
+        raise AssertionError(f"the {preset} {quantize or 'bf16'} path never "
+                             f"launched {never}: {launches}")
+    attn = launches[path[0]]
+    if attn % layers:
+        raise AssertionError(f"{attn} {path[0]} launches is not a whole number of "
+                             f"{layers}-layer encodes")
     with open(paths["out.txt"]) as f:
         lines = [ln.split() for ln in f]
     for qi in range(N_QUERIES):
@@ -294,34 +572,63 @@ def phase_end_to_end():
     wall = report.wall_s
     comps = report.total.comparisons
     mem = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[5/6] end to end, cli.run.main, random:t5-large bf16, setwise heapsort "
+    counts = ", ".join(f"{name} {launches[name]}" for name in COUNTERS)
+    print(f"[{n}/{N_PHASES}] end to end, cli.run.main, random:{preset} bf16"
+          f"{' --quantize ' + quantize if quantize else ''}, setwise heapsort "
           f"likelihood num_child 2 k 10, {N_QUERIES} queries x {N_DOCS} passages of "
           f"{PASSAGE_TOKENS} tokens: rerank wall {wall:.3f} s, "
           f"{N_QUERIES * N_DOCS / wall:.1f} docs/s, {comps} comparisons "
-          f"({comps / N_QUERIES:.1f} per query), flash launches {launches}, "
+          f"({comps / N_QUERIES:.1f} per query); launches: {counts}; "
           f"max memory allocated {mem:.2f} GiB")
     return launches
+
+
+def _kernel_entry(name, source, replaces, launches, measured):
+    err, ms, plain_ms = measured
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
 def main():
     name = phase_device()
     phase_build()
-    cfg = T5Config.flan_t5_large()
-    err, ms, plain_ms = phase_kernel(cfg)
+    large, xl = T5Config.flan_t5_large(), T5Config.flan_t5_xl()
+    b1 = phase_kernel(large)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b2 = phase_packed(gen)
+    b3 = phase_quantized_matmul(gen)
+    b4 = phase_gated_matmul(gen)
+    torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    model = t5.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    model = t5.init_params(large, gen, dtype=torch.bfloat16, device="cuda")
     with torch.no_grad():
-        model.encoder.rel_bias.copy_(trained_scale_bias(cfg, gen))
-    phase_score_labels(cfg, model)
+        model.encoder.rel_bias.copy_(trained_scale_bias(large, gen))
+    phase_score_labels(large, model)
     del model
     torch.cuda.empty_cache()
-    launches = phase_end_to_end()
-    print(json.dumps({"kernels": [{
-        "name": "flash_mha_blhd", "route": "cuda",
-        "source": "llmrankers_tpu_torch/csrc/flash_blhd.cu",
-        "replaces": "llmrankers_tpu/ops/flash.py:373",
-        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-    }]}))
+    bf16_launches = phase_end_to_end(8, "t5-large")
+    torch.cuda.empty_cache()
+    model = t5.init_params(xl, gen, dtype=torch.bfloat16, device="cuda")
+    with torch.no_grad():
+        model.encoder.rel_bias.copy_(trained_scale_bias(xl, gen))
+    phase_int8_score_labels(xl, model)
+    torch.cuda.empty_cache()
+    phase_parity(model)
+    del model
+    torch.cuda.empty_cache()
+    int8_launches = phase_end_to_end(11, "t5-xl", "int8")
+    csrc, ops = "llmrankers_tpu_torch/csrc/", "llmrankers_tpu/ops/"
+    print(f"[12/{N_PHASES}] kernels and result:")
+    print(json.dumps({"kernels": [
+        _kernel_entry("flash_mha_blhd", csrc + "flash_blhd.cu", ops + "flash.py:373",
+                      bf16_launches["flash_mha_blhd"], b1),
+        _kernel_entry("flash_mha_packed", csrc + "flash_blhd.cu", ops + "flash.py:500",
+                      int8_launches["flash_mha_packed"], b2),
+        _kernel_entry("quantized_matmul", csrc + "int8_fusedq.cu",
+                      ops + "int8_matmul.py:395", int8_launches["quantized_matmul"], b3),
+        _kernel_entry("gated_matmul", csrc + "int8_fusedq.cu",
+                      ops + "int8_matmul.py:564", int8_launches["gated_matmul"], b4),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

@@ -13,7 +13,8 @@ Counterpart of ``llmrankers_tpu/cli/run.py``, with the same flags (its
 ``--device`` picks the torch device: ``cuda`` by default, which raises when
 no GPU is present; the CPU runs only when asked for with ``--device cpu``.
 Models are the ``random:{t5-tiny,t5-large,t5-xl}`` presets (random weights
-from ``--seed``). They tokenize with the byte tokenizer, or with the local
+from ``--seed``); ``--quantize int8`` runs them as W8A8 int8 on the int8
+kernels. They tokenize with the byte tokenizer, or with the local
 HF tokenizer directory that ``--tokenizer_name_or_path`` names (for example
 flan-t5's, for prompts of its real token lengths). Flags of features that
 are not ported yet raise ``NotImplementedError`` naming their ROADMAP item.
@@ -43,7 +44,6 @@ def _check_ported(args) -> None:
     r = args.run
     unported = [
         (r.openai_key, "--openai_key (API rankers)", "A6"),
-        (r.quantize, "--quantize", "A5"),
         (r.kv_quantize, "--kv_quantize", "A8"),
         (r.awq_calib_file, "--awq_calib_file", "A9"),
         (r.spec_lookup, "--spec_lookup", "A8"),
@@ -107,7 +107,8 @@ def make_engine(run_args):
         extra["len_buckets"] = run_args.len_buckets
     if run_args.max_batch_tokens is not None:
         extra["max_batch_tokens"] = run_args.max_batch_tokens
-    return ScoringEngine("t5", cfg, model, tok, device=device, **extra)
+    return ScoringEngine("t5", cfg, model, tok, device=device,
+                         quantize=run_args.quantize, **extra)
 
 
 def make_ranker(args, engine):

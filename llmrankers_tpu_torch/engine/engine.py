@@ -7,8 +7,11 @@ token rows are padded into (batch, length) buckets from the same ladders, and
 waves whose B*L exceeds ``max_batch_tokens`` are split at batch-bucket rungs.
 The device half runs eagerly under ``torch.inference_mode()``.
 
-Only ``kind="t5"`` and ``score_labels`` are ported. The rest of the JAX
-engine raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+Only ``kind="t5"`` and ``score_labels`` are ported, in the model's dtype or
+with ``quantize="int8"``: W8A8 weights packed per ``models.quant.T5_PACKS``,
+with every large-M site on the int8 kernels (their plain versions on the CPU),
+the same route on every device. The rest of the JAX engine raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 from llmrankers_tpu.models.config import T5Config
 from llmrankers_tpu.utils import native
 
+from ..models.quant import quantize_t5_params
 from ..models.t5 import T5
 from .tokenizer import Tokenizer
 
@@ -52,6 +56,7 @@ class ScoringEngine:
         len_buckets: Sequence[int] = DEFAULT_LEN_BUCKETS,
         batch_buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS,
         max_batch_tokens: int = 2**17,
+        quantize: Optional[str] = None,  # None | 'int8' (weights)
     ):
         if kind != "t5":
             raise NotImplementedError(
@@ -62,6 +67,18 @@ class ScoringEngine:
                 "len_buckets 'auto' is not ported yet (ROADMAP A15)")
         if model.cfg != cfg:
             raise ValueError("cfg differs from the model's config")
+        if quantize is not None:
+            # The JAX engine's errors (engine.py:155-162).
+            if quantize not in ("int8", "int4"):
+                raise ValueError(f"unknown quantize mode {quantize!r}")
+            if quantize == "int4":
+                raise ValueError(
+                    "quantize='int4' targets decoder models (T5 scoring"
+                    " is compute-bound on the int8 MXU — use 'int8')"
+                )
+            # T5 scoring is compute-bound: int8 weights AND the W8A8
+            # kernels at every site with M = B*L >= 1024 (t5._mm dispatch).
+            model = quantize_t5_params(model, pack=True)
         self.kind = kind
         self.cfg = cfg
         self.tokenizer = tokenizer

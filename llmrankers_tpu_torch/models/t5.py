@@ -8,10 +8,21 @@ norm with fp32 statistics, no attention-score scaling, no embedding scaling,
 one relative-position bias per stack computed from its block-0 table, gated
 gelu_new FFN for v1.1/flan, untied lm_head for v1.1/flan.
 
-The GEMMs are ``torch.matmul``. Encoder self-attention goes through the flash
-kernel (:func:`..ops.flash.flash_mha_blhd`, which takes its plain version on
-CPU tensors) at every length when ``use_flash`` is set; the decoder's short
-self- and cross-attention stay on the plain path, as in JAX.
+In bf16 the GEMMs are ``torch.matmul``. Encoder self-attention goes through
+the flash kernel (:func:`..ops.flash.flash_mha_blhd`, which takes its plain
+version on CPU tensors) at every length when ``use_flash`` is set; the
+decoder's short self- and cross-attention stay on the plain path, as in JAX.
+
+A quantized model (``quantized=True``, made by
+:func:`.quant.quantize_t5_params`) holds int8 ``[K, N]`` weights and f32
+``[1, N]`` scales under the packed names of ``quant.T5_PACKS``. A matmul
+site whose weight dims are multiples of 128 and whose M = B*L is at least
+1024 runs the W8A8 kernels (``quantized_matmul``;
+``gated_matmul`` for the packed FFN), and the encoder's self-attention reads
+q/k/v straight out of the packed qkv output (``flash_mha_packed``). Every
+other quantized site computes ``x @ (w.to(x.dtype) * s.to(x.dtype))``, as the
+JAX module does. ``plain_kernels`` routes each kernel site to the kernel's
+plain version instead, on any device, to hold the kernels against it.
 """
 from __future__ import annotations
 
@@ -26,7 +37,11 @@ from torch import nn
 from llmrankers_tpu.models.config import T5Config
 
 from ..ops.attention import gelu_new, mha_flat, rms_norm
-from ..ops.flash import flash_mha_blhd
+from ..ops.flash import (flash_mha_blhd, flash_mha_blhd_plain, flash_mha_packed,
+                         flash_mha_packed_plain)
+from ..ops.int8_matmul import (gated_matmul, gated_matmul_plain, quantized_matmul,
+                               quantized_matmul_plain)
+from .quant import SCALE_SUFFIX, int8_layer_specs
 
 
 def relative_position_bucket(
@@ -97,15 +112,19 @@ def _empty(shape, dtype, device) -> nn.Parameter:
 class T5Stack(nn.Module):
     """One encoder or decoder stack: relative-bias table, layers, final norm."""
 
-    def __init__(self, cfg: T5Config, decoder: bool, dtype, device):
+    def __init__(self, cfg: T5Config, decoder: bool, dtype, device,
+                 quantized: bool = False):
         super().__init__()
         n = cfg.num_decoder_layers if decoder else cfg.num_layers
         shapes = _layer_shapes(cfg, decoder)
+        specs = ({k: (s, None) for k, s in shapes.items()} if not quantized else
+                 int8_layer_specs(shapes, "decoder" if decoder else "encoder"))
         self.rel_bias = _empty(
             (cfg.relative_attention_num_buckets, cfg.num_heads), dtype, device
         )
         self.layers = nn.ModuleList(
-            nn.ParameterDict({k: _empty(s, dtype, device) for k, s in shapes.items()})
+            nn.ParameterDict({k: _empty(s, dt or dtype, device)
+                              for k, (s, dt) in specs.items()})
             for _ in range(n)
         )
         self.final_ln = _empty((cfg.d_model,), dtype, device)
@@ -115,42 +134,92 @@ class T5(nn.Module):
     """flan-t5 for scoring: ``encode``, ``decode_hidden``, ``label_logits``."""
 
     def __init__(self, cfg: T5Config, dtype=torch.float32, device="cpu",
-                 use_flash: bool = True):
+                 use_flash: bool = True, quantized: bool = False):
         super().__init__()
         self.cfg = cfg
         self.use_flash = use_flash
+        self.quantized = quantized
+        self.plain_kernels = False  # kernel sites call the plain versions
         self.shared = _empty((cfg.vocab_size, cfg.d_model), dtype, device)
-        self.encoder = T5Stack(cfg, False, dtype, device)
-        self.decoder = T5Stack(cfg, True, dtype, device)
+        self.encoder = T5Stack(cfg, False, dtype, device, quantized)
+        self.decoder = T5Stack(cfg, True, dtype, device, quantized)
         self.lm_head = (
             None if cfg.tie_word_embeddings
             else _empty((cfg.d_model, cfg.vocab_size), dtype, device)
         )
 
     # -- blocks ------------------------------------------------------------
+    def _kernel_worthwhile(self, x: torch.Tensor, w: torch.Tensor) -> bool:
+        """The JAX dispatch rule (``t5.py::_kernel_worthwhile``) for an int8
+        site: the W8A8 kernel takes it when both dims of w are multiples of
+        128 and M = B*L >= 1024; small-M sites (the 1-2 token decoder) stay
+        on the dequant matmul."""
+        if w.shape[0] % 128 or w.shape[1] % 128:
+            return False
+        return x.numel() // x.shape[-1] >= 1024
+
+    def _mm(self, lp, name: str, x: torch.Tensor) -> torch.Tensor:
+        """One matmul site, plain or int8 (a packed leaf is one site too,
+        as in JAX's ``_mm_packed``): the W8A8 kernel when worthwhile, else
+        the dequant matmul with both operands in x's dtype."""
+        w = lp[name]
+        s = lp.get(name + SCALE_SUFFIX)
+        if s is None:
+            return x @ w
+        if self._kernel_worthwhile(x, w):
+            fn = quantized_matmul_plain if self.plain_kernels else quantized_matmul
+            return fn(x, w, s)
+        return x @ (w.to(x.dtype) * s.to(x.dtype))
+
     def _self_attn(self, lp, x, kv_mask, bias, causal, flash):
         H = self.cfg.num_heads
-        q, k, v = x @ lp["q"], x @ lp["k"], x @ lp["v"]
-        if flash:
-            out = flash_mha_blhd(q, k, v, H, kv_mask=kv_mask, causal=causal,
-                                 bias=bias, scale=1.0)
+        kw = dict(kv_mask=kv_mask, causal=causal, bias=bias, scale=1.0)
+        if "qkv" in lp:  # packed int8 projection
+            qkv = self._mm(lp, "qkv", x)
+            if flash:
+                fn = flash_mha_packed_plain if self.plain_kernels else flash_mha_packed
+                out = fn(qkv, H, **kw)
+            else:
+                HD = qkv.shape[-1] // 3
+                out = mha_flat(qkv[..., :HD], qkv[..., HD:2 * HD], qkv[..., 2 * HD:],
+                               H, **kw)
         else:
-            out = mha_flat(q, k, v, H, kv_mask=kv_mask, causal=causal,
-                           bias=bias, scale=1.0)
-        return out @ lp["o"]
+            q, k, v = (self._mm(lp, n, x) for n in ("q", "k", "v"))
+            if flash:
+                fn = flash_mha_blhd_plain if self.plain_kernels else flash_mha_blhd
+                out = fn(q, k, v, H, **kw)
+            else:
+                out = mha_flat(q, k, v, H, **kw)
+        return self._mm(lp, "o", out)
 
     def _cross_attn(self, lp, x, enc_out, enc_mask):
-        out = mha_flat(x @ lp["cq"], enc_out @ lp["ck"], enc_out @ lp["cv"],
-                       self.cfg.num_heads, kv_mask=enc_mask, scale=1.0)
-        return out @ lp["co"]
+        if "ckv" in lp:  # packed int8 cross k|v, M = B*L
+            ckv = self._mm(lp, "ckv", enc_out)
+            HD = ckv.shape[-1] // 2
+            k, v = ckv[..., :HD], ckv[..., HD:]
+        else:
+            k, v = self._mm(lp, "ck", enc_out), self._mm(lp, "cv", enc_out)
+        out = mha_flat(self._mm(lp, "cq", x), k, v, self.cfg.num_heads,
+                       kv_mask=enc_mask, scale=1.0)
+        return self._mm(lp, "co", out)
 
     def _ffn(self, lp, x):
-        if self.cfg.is_gated:
-            act = gelu_new if self.cfg.act_fn == "gelu_new" else F.relu
-            h = act(x @ lp["wi_0"]) * (x @ lp["wi_1"])
+        cfg = self.cfg
+        act = gelu_new if cfg.act_fn == "gelu_new" else F.relu
+        if cfg.is_gated and "wi_g" in lp:  # packed int8 gate|up
+            w, s = lp["wi_g"], lp["wi_g" + SCALE_SUFFIX]
+            if self._kernel_worthwhile(x, w):
+                fn = gated_matmul_plain if self.plain_kernels else gated_matmul
+                h = fn(x, w, s, act=cfg.act_fn)
+            else:
+                hh = x @ (w.to(x.dtype) * s.to(x.dtype))
+                n = hh.shape[-1] // 2
+                h = act(hh[..., :n]) * hh[..., n:]
+        elif cfg.is_gated:
+            h = act(self._mm(lp, "wi_0", x)) * self._mm(lp, "wi_1", x)
         else:
-            h = F.relu(x @ lp["wi"])
-        return h @ lp["wo"]
+            h = F.relu(self._mm(lp, "wi", x))
+        return self._mm(lp, "wo", h)
 
     # -- forwards ------------------------------------------------------------
     def encode(self, input_ids: torch.Tensor, attn_mask: torch.Tensor) -> torch.Tensor:
@@ -213,8 +282,11 @@ def _fill(param: nn.Parameter, value: Any, name: str) -> None:
 def params_from_jax(tree: Dict[str, Any], cfg: T5Config, dtype=torch.float32,
                     device="cpu") -> T5:
     """The port's module from a ``llmrankers_tpu.models.t5`` parameter tree
-    (leaves as numpy arrays; per-layer leaves stacked on a leading [L] axis)."""
-    model = T5(cfg, dtype=dtype, device=device)
+    (leaves as numpy arrays; per-layer leaves stacked on a leading [L] axis).
+    A tree from the JAX ``quantize_t5_params(pack=True)`` loads into a
+    quantized module: int8 leaves and f32 scales as they are."""
+    quantized = any(k.endswith(SCALE_SUFFIX) for k in tree["encoder"]["layers"])
+    model = T5(cfg, dtype=dtype, device=device, quantized=quantized)
     _fill(model.shared, tree["shared"], "shared")
     if model.lm_head is not None:
         _fill(model.lm_head, tree["lm_head"], "lm_head")

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/kernels/<name>-<hash>.so`` at the root of the checkout, keyed by a hash
 of the sources and the compiler flags, and is loaded with ctypes. Nothing is
 compiled when a module is imported: a kernel's wrapper calls :func:`load` the
-first time it launches on a CUDA tensor.
+first time it launches on a CUDA tensor. :func:`load_all` builds several
+sources at once, one nvcc process each.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Sequence, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -25,6 +27,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_name_locks: Dict[str, threading.Lock] = {}
 _loaded: Dict[str, Tuple[ctypes.CDLL, str]] = {}
 
 
@@ -52,6 +55,8 @@ def load(name: str) -> ctypes.CDLL:
 
     Raises RuntimeError with nvcc's output when the build fails."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name not in _loaded:
             src = os.path.join(CSRC_DIR, name + ".cu")
             so = os.path.join(BUILD_DIR, f"{name}-{_digest()}.so")
@@ -72,6 +77,12 @@ def load(name: str) -> ctypes.CDLL:
                 log = res.stderr + res.stdout
             _loaded[name] = (ctypes.CDLL(so), log)
         return _loaded[name][0]
+
+
+def load_all(names: Sequence[str]) -> List[ctypes.CDLL]:
+    """:func:`load` for every name, the builds running side by side."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(load, names))
 
 
 def build_log(name: str) -> str:

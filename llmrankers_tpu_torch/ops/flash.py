@@ -1,10 +1,14 @@
-"""Flash attention over the [B, L, H*Dh] layout: wrapper, plain version, count.
+"""Flash attention over the [B, L, H*Dh] layout: wrappers, plain versions,
+counts.
 
-Counterpart of ``llmrankers_tpu/ops/flash.py::flash_mha_blhd``. On a CUDA
-tensor :func:`flash_mha_blhd` launches the hand-written kernel
-``csrc/flash_blhd.cu`` (bf16, ``sm_90a``) or raises; on a CPU tensor it runs
-:func:`flash_mha_blhd_plain`, which computes what the kernel computes with
-the TPU kernel's masking constants, so fully masked rows come out as zeros.
+Counterparts of ``llmrankers_tpu/ops/flash.py::flash_mha_blhd`` and
+``::flash_mha_packed``. On a CUDA tensor :func:`flash_mha_blhd` launches the
+hand-written kernel ``csrc/flash_blhd.cu`` (bf16, ``sm_90a``) or raises; on a
+CPU tensor it runs :func:`flash_mha_blhd_plain`, which computes what the
+kernel computes with the TPU kernel's masking constants, so fully masked rows
+come out as zeros. :func:`flash_mha_packed` runs the same kernel on q, k and
+v read straight out of one packed ``[B, L, 3*H*Dh]`` qkv projection: three
+strided views at column offsets 0, H*Dh and 2*H*Dh, no slice copies.
 """
 from __future__ import annotations
 
@@ -102,6 +106,16 @@ def flash_mha_blhd(
                                     causal=causal, bias=bias, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha_blhd: no kernel for device {q.device}")
+    out = _launch(q, k, v, num_heads, kv_mask, causal, bias, scale)
+    flash_mha_blhd.launches += 1
+    return out
+
+
+flash_mha_blhd.launches = 0
+
+
+def _launch(q, k, v, num_heads, kv_mask, causal, bias, scale) -> torch.Tensor:
+    """Check q/k/v (views allowed) and launch flash_blhd.cu on them."""
     B, Lq, HD = q.shape
     Lk = k.shape[1]
     if HD % num_heads:
@@ -148,8 +162,59 @@ def flash_mha_blhd(
         )
     if rc != 0:
         raise RuntimeError(f"flash_blhd kernel launch failed: CUDA error {rc}")
-    flash_mha_blhd.launches += 1
     return out
 
 
-flash_mha_blhd.launches = 0
+def _split_packed(qkv: torch.Tensor):
+    """q, k, v as views of the packed [B, L, 3*H*Dh] tensor (no copies)."""
+    if qkv.shape[-1] % 3:
+        raise ValueError(f"packed width {qkv.shape[-1]} is not 3*H*Dh")
+    HD = qkv.shape[-1] // 3
+    return qkv[..., :HD], qkv[..., HD:2 * HD], qkv[..., 2 * HD:]
+
+
+def flash_mha_packed_plain(
+    qkv: torch.Tensor,  # [B, L, 3*H*Dh]
+    num_heads: int,
+    kv_mask: Optional[torch.Tensor] = None,  # [B, L] {0,1}
+    causal: bool = False,
+    bias: Optional[torch.Tensor] = None,  # [1, H, L, L]
+    scale: float = 1.0,
+) -> torch.Tensor:
+    """The packed kernel's function in plain PyTorch: self-attention over
+    the q/k/v column blocks of the packed projection."""
+    q, k, v = _split_packed(qkv)
+    return flash_mha_blhd_plain(q, k, v, num_heads, kv_mask=kv_mask,
+                                causal=causal, bias=bias, scale=scale)
+
+
+def flash_mha_packed(
+    qkv: torch.Tensor,  # [B, L, 3*H*Dh], contiguous
+    num_heads: int,
+    kv_mask: Optional[torch.Tensor] = None,  # [B, L] int32 {0,1}
+    causal: bool = False,
+    bias: Optional[torch.Tensor] = None,  # [1, H, L, L], qkv's dtype
+    scale: float = 1.0,
+) -> torch.Tensor:
+    """Self-attention straight off the packed qkv projection, [B, L, H*Dh] out.
+
+    The TPU kernel's contract: self-attention only (Lq = Lk = L), causal
+    offset 0. CPU tensors take :func:`flash_mha_packed_plain`. CUDA tensors
+    launch ``csrc/flash_blhd.cu`` on three strided views of ``qkv`` (row
+    stride 3*H*Dh, column offsets 0, H*Dh, 2*H*Dh) and add one to
+    ``flash_mha_packed.launches``; what the kernel does not take raises, as
+    for :func:`flash_mha_blhd`."""
+    if qkv.device.type == "cpu":
+        return flash_mha_packed_plain(qkv, num_heads, kv_mask=kv_mask,
+                                      causal=causal, bias=bias, scale=scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"flash_mha_packed: no kernel for device {qkv.device}")
+    if not qkv.is_contiguous():
+        raise ValueError("flash_mha_packed: qkv must be contiguous")
+    q, k, v = _split_packed(qkv)
+    out = _launch(q, k, v, num_heads, kv_mask, causal, bias, scale)
+    flash_mha_packed.launches += 1
+    return out
+
+
+flash_mha_packed.launches = 0

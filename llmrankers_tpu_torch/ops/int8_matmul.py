@@ -1,0 +1,302 @@
+"""W8A8 int8 GEMMs with in-kernel activation quantization: wrappers, plain
+versions, K-block rule, launch counts.
+
+Counterparts of ``llmrankers_tpu/ops/int8_matmul.py::quantized_matmul``
+(body ``_kernel_fusedq``) and ``::gated_matmul`` (body ``_kernel_gated``).
+Weights are symmetric per-output-channel int8 ``[K, N]`` with f32 ``[1, N]``
+scales; activations are quantized per row and per K-block of ``kblock``
+columns (one scale each), the int8 products are summed exactly in int32
+within a K-block, and each block's sum is folded into an f32 accumulator
+times its row scale. The epilogue multiplies the column scale (and adds a
+residual, or applies ``act(h0) * h1`` over the two halves of a packed gated
+weight).
+
+On a CUDA tensor :func:`quantized_matmul` and :func:`gated_matmul` launch the
+hand-written kernels of ``csrc/int8_fusedq.cu`` (bf16 x, ``sm_90a``) or
+raise; on a CPU tensor they run the plain versions, which compute the same
+numbers step by step: the same quantized int8 values, exact integer sums
+(taken in float64, exact below 2^53), the same f32 fold order.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+
+GELU_C = 0.7978845608028654  # sqrt(2/pi)
+_VMEM_BUDGET = 13 * 2**20
+
+
+def _largest_divisor(n: int, cap: int, step: int = 128) -> int:
+    """Largest multiple of ``step`` that divides ``n`` and is <= cap; 0 if none."""
+    best, t = 0, step
+    while t <= min(n, cap):
+        if n % t == 0:
+            best = t
+        t += step
+    return best
+
+
+def kblock(K: int, N: int, x_dtype: torch.dtype = torch.bfloat16,
+           residual: bool = False, gated: bool = False) -> int:
+    """The K-block that carries one activation scale per row.
+
+    The JAX kernels' rule, computed the same way so the port quantizes to the
+    same int8 values: the largest 128-multiple divisor of K up to 2048,
+    halved while it is above 1024 and the TPU kernel's VMEM estimate (which
+    depends on N, x's dtype, the residual and the gated variant's output
+    dtype) is above 13 MiB. ``N`` is the output width: for ``gated`` the
+    width of one half."""
+    xbytes = torch.empty((), dtype=x_dtype).element_size()
+    bm = 256
+    bk = _largest_divisor(K, 2048)
+    if gated:
+        bn = _largest_divisor(N, 512)
+    else:
+        bn = _largest_divisor(N, 2048)
+    if bn == 0 or bk == 0:
+        raise ValueError(f"int8 matmul needs 128-multiple divisible K/N, got {K}x{N}")
+
+    def vmem(bk_: int) -> int:
+        nk_ = K // bk_
+        if gated:
+            return (2 * (bm * bk_ * xbytes + 2 * bk_ * bn) + 2 * 4 * bm * bn
+                    + 2 * bm * bn * xbytes * 2 + nk_ * bm * (bk_ + 4)
+                    + bm * bk_ * 4)
+        res_bytes = 2 * bm * bn * 2 if residual else 0
+        return (2 * (bm * bk_ * xbytes + bk_ * bn) + 4 * bm * bn + 4 * bm * bn
+                + res_bytes + nk_ * bm * (bk_ + 4) + bm * bk_ * 4)
+
+    while bk > 1024 and vmem(bk) > _VMEM_BUDGET:
+        bk //= 2
+    return bk
+
+
+_kblock_rule = kblock  # the plain versions' argument of the same name shadows it
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+def _inv127(device) -> torch.Tensor:
+    # f32(1/127) as JAX forms it from the Python float.
+    return torch.tensor(1.0 / 127.0, dtype=torch.float32, device=device)
+
+
+def quantize_blocks(x: torch.Tensor, kb: int):
+    """Per-row, per-K-block symmetric int8 quantization of ``[M, K]`` x, as
+    the TPU body does it: ``scale = max(amax, 1e-8) * f32(1/127)``, then
+    ``clip(rint(x * (1 / scale)), -127, 127)``. Returns the quantized values
+    as float32 ``[M, nk, kb]`` and the f32 scales ``[M, nk]``."""
+    M, K = x.shape
+    xf = x.float().reshape(M, K // kb, kb)
+    amax = xf.abs().amax(dim=-1)
+    scale = amax.clamp_min(1e-8) * _inv127(x.device)
+    q = torch.clamp(torch.round(xf * (1.0 / scale)[..., None]), -127, 127)
+    return q, scale
+
+
+def _fold(q: torch.Tensor, scale: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """sum over K-blocks of float(int32 block sum) * row scale, in f32, in
+    block order. The block sums are exact: float64 holds every int32."""
+    M, nk, kb = q.shape
+    w = w8.double().reshape(nk, kb, -1)
+    acc = None
+    for b in range(nk):
+        d = (q[:, b].double() @ w[b]).float()
+        term = d * scale[:, b:b + 1]
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def _out_dtype(x: torch.Tensor) -> torch.dtype:
+    return torch.float32 if x.dtype == torch.float32 else x.dtype
+
+
+def quantized_matmul_plain(
+    x: torch.Tensor,  # [..., K] bf16/f32
+    w8: torch.Tensor,  # [K, N] int8
+    sw: torch.Tensor,  # [1, N] f32
+    residual: Optional[torch.Tensor] = None,  # [..., N]
+    kblock: Optional[int] = None,
+) -> torch.Tensor:
+    """The W8A8 kernel's function in plain PyTorch, ``[..., N]`` in x's
+    dtype. ``kblock`` overrides the K-block rule."""
+    K, N = w8.shape
+    kb = kblock or _kblock_rule(K, N, x.dtype, residual is not None)
+    q, scale = quantize_blocks(x.reshape(-1, K), kb)
+    out = _fold(q, scale, w8) * sw.float().reshape(1, N)
+    if residual is not None:
+        out = out + residual.reshape(-1, N).float()
+    return out.to(_out_dtype(x)).reshape(*x.shape[:-1], N)
+
+
+def act_fn(name: str, h: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's epilogue activations, in its order of operations."""
+    if name == "gelu_new":
+        return 0.5 * h * (1.0 + torch.tanh(GELU_C * (h + 0.044715 * h * h * h)))
+    if name == "relu":
+        return torch.clamp_min(h, 0.0)
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def gated_matmul_plain(
+    x: torch.Tensor,  # [..., K]
+    wp: torch.Tensor,  # [K, 2N] int8: w0 | w1
+    sp: torch.Tensor,  # [1, 2N] f32
+    act: str = "gelu_new",
+    kblock: Optional[int] = None,
+) -> torch.Tensor:
+    """``act(x @ w0) * (x @ w1)`` of the gated kernel in plain PyTorch,
+    ``[..., N]`` in x's dtype."""
+    K, N2 = wp.shape
+    N = N2 // 2
+    kb = kblock or _kblock_rule(K, N, x.dtype, gated=True)
+    q, scale = quantize_blocks(x.reshape(-1, K), kb)
+    sp = sp.float().reshape(1, N2)
+    h0 = _fold(q, scale, wp[:, :N]) * sp[:, :N]
+    h1 = _fold(q, scale, wp[:, N:]) * sp[:, N:]
+    return (act_fn(act, h0) * h1).to(_out_dtype(x)).reshape(*x.shape[:-1], N)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+_ACTS = {"gelu_new": 0, "relu": 1}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("int8_fusedq")
+    if lib.quantized_matmul_bf16.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.quantized_matmul_bf16.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+        lib.quantized_matmul_bf16.restype = i32
+        lib.gated_matmul_bf16.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        lib.gated_matmul_bf16.restype = i32
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
+    if (t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device
+            or not t.is_contiguous()):
+        raise ValueError(f"{name}: the kernel takes a contiguous {dtype} "
+                         f"{list(shape)} tensor on {device}, got {t.dtype} "
+                         f"{list(t.shape)} on {t.device}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: base pointer must be 16-byte aligned")
+
+
+def _check_x(fn: str, x: torch.Tensor, K: int, N: int) -> torch.Tensor:
+    """x as the kernel's [M, K] view, or raise."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{fn}: no kernel for device {x.device}")
+    if K % 128 or N % 128:
+        raise ValueError(f"{fn}: K and N must be multiples of 128, got {K}x{N}")
+    if not x.is_contiguous():
+        raise ValueError(f"{fn}: x must be contiguous")
+    x2 = x.reshape(-1, K)
+    _check("x", x2, torch.bfloat16, (x2.shape[0], K), x.device)
+    return x2
+
+
+def _scratch(x2: torch.Tensor, kb: int):
+    M, K = x2.shape
+    x8 = torch.empty((M, K), dtype=torch.int8, device=x2.device)
+    sx = torch.empty((M, K // kb), dtype=torch.float32, device=x2.device)
+    return x8, sx
+
+
+def quantized_matmul(
+    x: torch.Tensor,  # [..., K] bf16 (f32 on the CPU)
+    w8: torch.Tensor,  # [K, N] int8
+    sw: torch.Tensor,  # [1, N] f32
+    residual: Optional[torch.Tensor] = None,  # [..., N]
+) -> torch.Tensor:
+    """Dynamic-activation W8A8 ``x @ (w8 * sw) (+ residual)`` over any
+    leading dims.
+
+    CPU tensors take :func:`quantized_matmul_plain`. CUDA tensors launch the
+    quantize pass and the GEMM of ``csrc/int8_fusedq.cu`` on the current
+    stream and add one to ``quantized_matmul.launches``; what the kernel
+    does not take raises: x other than contiguous bf16, K or N not a
+    multiple of 128, tensors off x's device, unaligned base pointers. Ragged
+    M is masked inside the kernel."""
+    if x.device.type == "cpu":
+        return quantized_matmul_plain(x, w8, sw, residual)
+    lead, K = x.shape[:-1], x.shape[-1]
+    N = w8.shape[1]
+    x2 = _check_x("quantized_matmul", x, K, N)
+    M = x2.shape[0]
+    res2 = None
+    if residual is not None:
+        if not residual.is_contiguous():
+            raise ValueError("residual: the kernel takes a contiguous tensor")
+        res2 = residual.reshape(M, N)
+    _check("w8", w8, torch.int8, (K, N), x.device)
+    _check("sw", sw, torch.float32, (1, N), x.device)
+    if res2 is not None:
+        _check("residual", res2, torch.bfloat16, (M, N), x.device)
+    kb = kblock(K, N, x.dtype, residual is not None)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M == 0:
+        return out.reshape(*lead, N)
+    x8, sx = _scratch(x2, kb)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.quantized_matmul_bf16(
+            x2.data_ptr(), w8.data_ptr(), sw.data_ptr(),
+            None if res2 is None else res2.data_ptr(),
+            x8.data_ptr(), sx.data_ptr(), out.data_ptr(), M, K, N, kb, stream)
+    if rc != 0:
+        raise RuntimeError(f"int8_fusedq quantized_matmul launch failed: CUDA error {rc}")
+    quantized_matmul.launches += 1
+    return out.reshape(*lead, N)
+
+
+quantized_matmul.launches = 0
+
+
+def gated_matmul(
+    x: torch.Tensor,  # [..., K]
+    wp: torch.Tensor,  # [K, 2N] int8: gate | up
+    sp: torch.Tensor,  # [1, 2N] f32
+    act: str = "gelu_new",
+) -> torch.Tensor:
+    """``act(x @ w0) * (x @ w1)`` over one packed int8 weight, any leading
+    dims. CPU tensors take :func:`gated_matmul_plain`; CUDA tensors launch
+    the gated kernel of ``csrc/int8_fusedq.cu`` (the ``[M, 2N]``
+    intermediate is never written) and add one to
+    ``gated_matmul.launches``, under the checks of :func:`quantized_matmul`
+    with N the width of one half."""
+    if act not in _ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    if x.device.type == "cpu":
+        return gated_matmul_plain(x, wp, sp, act)
+    lead, K = x.shape[:-1], x.shape[-1]
+    N = wp.shape[1] // 2
+    x2 = _check_x("gated_matmul", x, K, N)
+    M = x2.shape[0]
+    _check("wp", wp, torch.int8, (K, 2 * N), x.device)
+    _check("sp", sp, torch.float32, (1, 2 * N), x.device)
+    kb = kblock(K, N, x.dtype, gated=True)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M == 0:
+        return out.reshape(*lead, N)
+    x8, sx = _scratch(x2, kb)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.gated_matmul_bf16(
+            x2.data_ptr(), wp.data_ptr(), sp.data_ptr(), x8.data_ptr(),
+            sx.data_ptr(), out.data_ptr(), M, K, N, kb, _ACTS[act], stream)
+    if rc != 0:
+        raise RuntimeError(f"int8_fusedq gated_matmul launch failed: CUDA error {rc}")
+    gated_matmul.launches += 1
+    return out.reshape(*lead, N)
+
+
+gated_matmul.launches = 0

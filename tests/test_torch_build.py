@@ -41,3 +41,29 @@ def test_build_key_follows_sources_and_flags(monkeypatch):
     assert _build._digest() != key
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert os.path.exists(os.path.join(_build.CSRC_DIR, "flash_blhd.cu"))
+
+
+def test_int8_source_has_its_entry_points():
+    """The W8A8 kernels are one hand-written source with two C entry points
+    on int8 tensor-core tiles."""
+    with open(os.path.join(_build.CSRC_DIR, "int8_fusedq.cu")) as f:
+        src = f.read()
+    for entry in ("quantized_matmul_bf16", "gated_matmul_bf16"):
+        assert f'extern "C" int {entry}(' in src
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in src
+    assert "cublas" not in src.lower()
+
+
+def test_load_all_builds_each_source_and_raises(fresh_build, monkeypatch):
+    """load_all starts one nvcc per source and raises a failed build."""
+    log = fresh_build / "calls"
+    fake = fresh_build / "nvcc"
+    fake.write_text(f"#!/bin/sh\necho \"$@\" >> {log}\necho 'error: no GPU' >&2\nexit 2\n")
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    with pytest.raises(RuntimeError, match="no GPU"):
+        _build.load_all(["flash_blhd", "int8_fusedq"])
+    calls = log.read_text().splitlines()
+    assert len(calls) == 2
+    assert {c.split()[-1].rsplit("/", 1)[1] for c in calls} == {
+        "flash_blhd.cu", "int8_fusedq.cu"}

@@ -23,7 +23,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "llmrankers_tpu_torch", "llmrankers_tpu_torch.ops._build",
     "llmrankers_tpu_torch.ops.attention", "llmrankers_tpu_torch.ops.flash",
+    "llmrankers_tpu_torch.ops.int8_matmul", "llmrankers_tpu_torch.models.quant",
     "llmrankers_tpu_torch.models.t5", "llmrankers_tpu_torch.engine.engine",
+    "llmrankers_tpu_torch.engine.parity",
     "llmrankers_tpu_torch.engine.tokenizer", "llmrankers_tpu_torch.rankers.base",
     "llmrankers_tpu_torch.rankers.prompts", "llmrankers_tpu_torch.rankers.setwise",
     "llmrankers_tpu_torch.cli.run",

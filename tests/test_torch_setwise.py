@@ -2,8 +2,8 @@
 
 The JAX ranker on the JAX engine and the port's ranker on the port's engine,
 with the same weights, must return the same final orders, docid for docid.
-Then the port's CLI runs on a synthetic TREC run and docstore, once with the
-byte tokenizer and once with a local HF tokenizer directory.
+Then the port's CLI runs on a synthetic TREC run and docstore: with the byte
+tokenizer, with ``--quantize int8``, and with a local HF tokenizer directory.
 """
 import json
 
@@ -129,8 +129,32 @@ def test_cli_reranks_trec_run(tmp_path, capsys):
 
 def test_cli_raises_on_unported_flags(tmp_path):
     _write_inputs(tmp_path)
-    args = trun.parse_args(_argv(tmp_path, "--device", "cpu", "--quantize", "int8"))
-    with pytest.raises(NotImplementedError, match="A5"):
+    args = trun.parse_args(_argv(tmp_path, "--device", "cpu", "--kv_quantize", "int8"))
+    with pytest.raises(NotImplementedError, match="A8"):
+        trun.main(args)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cli_reranks_int8(tmp_path, dtype):
+    _write_inputs(tmp_path)
+    args = trun.parse_args(_argv(tmp_path, "--device", "cpu", "--dtype", dtype,
+                                 "--quantize", "int8"))
+    engine = trun.make_engine(args.run)
+    assert engine.model.quantized and "qkv" in engine.model.encoder.layers[0]
+    report = trun.main(args)
+    rows = [ln.split() for ln in (tmp_path / "out.txt").read_text().splitlines()]
+    assert len(rows) == 20
+    for qi in range(2):
+        got = [r for r in rows if r[0] == f"q{qi}"]
+        assert sorted(r[2] for r in got) == sorted(f"d{d}" for d in range(10))
+        assert [int(r[3]) for r in got] == list(range(1, 11))
+    assert report.total.comparisons > 0
+
+
+def test_cli_int4_on_t5_raises(tmp_path):
+    _write_inputs(tmp_path)
+    args = trun.parse_args(_argv(tmp_path, "--device", "cpu", "--quantize", "int4"))
+    with pytest.raises(ValueError, match="int4.*decoder models"):
         trun.main(args)
 
 
