@@ -3,27 +3,32 @@
 
 Run from the root of a checkout:
 
-    python3 chip_profile.py                  # bf16 flan-t5-large
-    python3 chip_profile.py --quantize int8  # W8A8 int8 flan-t5-xl
+    python3 chip_profile.py                      # bf16 flan-t5-large
+    python3 chip_profile.py --quantize int8      # W8A8 int8 flan-t5-xl
+    python3 chip_profile.py --model qwen2.5-3b   # bf16 Qwen2.5-3B, decoder-only
 
 It runs ``chip_smoke.py``'s end-to-end configuration (random-init weights at
 full width, 4 synthetic queries x 100 passages of 128 tokens, setwise
 heapsort with likelihood scoring, num_child 2, k 10; flan-t5-large in bf16,
-or flan-t5-xl in int8 with ``--quantize int8``) through the CLI's
-``make_engine``/``make_ranker``/``load_inputs`` and the ranker's
-``rerank_many``, all in one process:
+flan-t5-xl in int8 with ``--quantize int8``, or Qwen2.5-3B in bf16 with the
+shared-prefix path and the cross-wave prefix-KV cache) through the CLI's
+``make_engine`` (Qwen2.5-3B: a random-init engine built here)/
+``make_ranker``/``load_inputs`` and the ranker's ``rerank_many``, all in one
+process:
 
 1. one warm-up rerank, then four timed reranks in the order plain, kernel,
    kernel, plain: rerank wall on the host clock, docs/s. "Plain" is plain
    attention in bf16, and every kernel site on the kernel's plain version
-   in int8;
+   in int8. The decoder's prefix-KV cache starts empty in every rerank;
 2. one more rerank with the kernels under ``torch.profiler``: device kernel
    time by kernel family, and the device's busy share in that same run
    (summed kernel time over the run's own wall; the profiler slows the host,
    so the unprofiled share is at least this);
-3. in bf16, the flash kernel's time at B 32, L 640 from CUDA events, its
-   achieved bf16 TFLOP/s, and that as a share of the H100 SXM data sheet's
-   dense bf16 peak of 989 TFLOP/s (rated at a 700 W power limit).
+3. in bf16, the flash kernel's time at B 32, L 640 from CUDA events (T5:
+   B1 at H 16, Dh 64; Qwen2.5-3B: B5 at H 16, KV 2, Dh 128, causal, left
+   padding), its achieved bf16 TFLOP/s over the work the mask leaves, and
+   that as a share of the H100 SXM data sheet's dense bf16 peak of 989
+   TFLOP/s (rated at a 700 W power limit).
 
 It prints the card's name and power limit first and one JSON line of the
 numbers last. Without a CUDA GPU it exits with an error.
@@ -38,9 +43,11 @@ import time
 import torch
 
 import chip_smoke as smoke  # exits when there is no CUDA GPU
-from llmrankers_tpu.cli.run import load_inputs
-from llmrankers_tpu.models.config import T5Config
 from llmrankers_tpu_torch.cli import run as cli_run
+from llmrankers_tpu_torch.engine.engine import ScoringEngine
+from llmrankers_tpu_torch.engine.tokenizer import ByteTokenizer
+from llmrankers_tpu_torch.models import decoder
+from llmrankers_tpu_torch.models.config import DecoderConfig, T5Config
 
 H100_BF16_PEAK_TFLOPS = 989.0  # NVIDIA H100 SXM data sheet, dense, 700 W
 FAMILIES = (  # first match wins, on the lower-cased kernel name
@@ -62,18 +69,21 @@ def _family(name: str) -> str:
     return "elementwise"
 
 
-def _use_kernels(model, on: bool, quantized: bool) -> None:
-    if quantized:
+def _use_kernels(model, on: bool) -> None:
+    if getattr(model, "quantized", False):
         model.plain_kernels = not on
     else:
         model.use_flash = on
 
 
 def _rerank(args, engine, use_kernels: bool):
-    """One rerank of the whole input: (wall seconds, comparisons)."""
-    _use_kernels(engine.model, use_kernels, engine.model.quantized)
+    """One rerank of the whole input: (wall seconds, comparisons). A decoder
+    engine is made anew, so its prefix-KV cache starts empty."""
+    if engine.kind == "decoder":
+        engine = ScoringEngine("decoder", engine.cfg, engine.model, engine.tokenizer)
+    _use_kernels(engine.model, use_kernels)
     ranker = cli_run.make_ranker(args, engine)
-    first_stage = load_inputs(args, ranker)
+    first_stage = cli_run.load_inputs(args, ranker)
     torch.cuda.synchronize()
     tic = time.perf_counter()
     ranker.rerank_many([q for _, q, _ in first_stage], [r for _, _, r in first_stage])
@@ -96,13 +106,24 @@ def _device_times(prof):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--quantize", choices=("int8",), default=None)
-    quantize = parser.parse_args().quantize
-    preset = "t5-xl" if quantize else "t5-large"
+    parser.add_argument("--model", choices=("t5", "qwen2.5-3b"), default="t5")
+    opts = parser.parse_args()
+    quantize = opts.quantize
+    if quantize and opts.model != "t5":
+        parser.error("--quantize int8 is ported for the T5 presets only")
+    preset = opts.model if opts.model != "t5" else "t5-xl" if quantize else "t5-large"
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
-    args = smoke.cli_args(smoke._write_inputs(), preset, quantize)
-    engine = cli_run.make_engine(args.run)
+    if opts.model == "t5":
+        args = smoke.cli_args(smoke._write_inputs(), preset, quantize)
+        engine = cli_run.make_engine(args.run)
+    else:  # the model is built here; the args only carry the input and ranker
+        args = smoke.cli_args(smoke._write_inputs(), "dec-tiny")
+        cfg = DecoderConfig.qwen25_3b()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model = decoder.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+        engine = ScoringEngine("decoder", cfg, model, ByteTokenizer(cfg.vocab_size))
     docs = smoke.N_QUERIES * smoke.N_DOCS
 
     _rerank(args, engine, True)  # warm-up: first calls of each batch shape
@@ -148,17 +169,25 @@ def main():
         "family_ms": {f: us / 1e3 for f, us in by_family.items()},
     }
     if not quantize:
-        cfg = T5Config.flan_t5_large()
         gen = torch.Generator(device="cuda").manual_seed(0)
         B, L = 32, 640
-        _, _, run_kernel, _ = smoke._attn_case(gen, B, L, L, False,
-                                               smoke.trained_scale_bias(cfg, gen), cfg)
-        ms = smoke._cuda_ms(run_kernel)
-        tflops = 4 * B * cfg.num_heads * L * L * cfg.d_kv / (ms * 1e-3) / 1e12
-        print(f"flash kernel B{B} L{L} H{cfg.num_heads} Dh{cfg.d_kv} bf16: {ms:.4f} ms, "
-              f"{tflops:.2f} TFLOP/s, {100 * tflops / H100_BF16_PEAK_TFLOPS:.2f}% of "
-              f"the {H100_BF16_PEAK_TFLOPS:.0f} TFLOP/s bf16 data-sheet peak")
-        out.update(flash_ms_b32_l640=ms, flash_tflops=tflops)
+        if opts.model == "t5":
+            cfg = T5Config.flan_t5_large()
+            H, Dh = cfg.num_heads, cfg.d_kv
+            case = smoke._attn_case(gen, B, L, L, False,
+                                    smoke.trained_scale_bias(cfg, gen), cfg)
+        else:
+            cfg = DecoderConfig.qwen25_3b()
+            H, Dh = cfg.num_attention_heads, cfg.head_dim_
+            case = smoke._b5_case(gen, B, L, L, H, cfg.num_key_value_heads, "left")
+        ms = smoke._cuda_ms(case["kernel"])
+        tflops = case["flops"] / (ms * 1e-3) / 1e12
+        bound = case["bound"]
+        print(f"flash kernel B{B} L{L} H{H} Dh{Dh} bf16: {ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]}), {tflops:.2f} TFLOP/s over the masked work, "
+              f"{100 * tflops / H100_BF16_PEAK_TFLOPS:.2f}% of the "
+              f"{H100_BF16_PEAK_TFLOPS:.0f} TFLOP/s bf16 data-sheet peak")
+        out.update(flash_ms_b32_l640=ms, flash_tflops=tflops, flash_bound_ms=bound[0])
     print(json.dumps(out))
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths once on one GPU and check them.
 
 Run from the root of a checkout, with no arguments:
 
@@ -25,26 +25,41 @@ nvcc per source, side by side) and then, one line per phase:
    whole-row activation scale and column scales rolled by one must fail;
 6. B4: the gated GEMM at xl wi_g with gelu_new, the same gate plus a stated
    tanh allowance; swapped halves and relu must fail;
-7. ``score_labels`` on a random-init flan-t5-large at full width in bf16
+7. B5: the GQA flash kernel on [B, H, L, Dh] views of the projections at
+   Qwen2.5-3B's attention shapes (H 16, KV 2, Dh 128): (a) a left-padded
+   causal batch, B 32, L 640, one all-padding row; (b) a shared-prefix
+   suffix, Lq 512 over keys [prefix 256 | suffix 512] with padding holes,
+   causal offset 256; (c) a sliding window of 128 at L 640, H 32, KV 8;
+   KV head h % KV, causal offset 0 and no window must fail the gate;
+8. ``score_labels`` on a random-init flan-t5-large at full width in bf16
    (its encoder bias table redrawn at std 1), once through the kernel and
    once with plain attention: encoder outputs and label logits, with a
    no-bias control at the encoder output;
-8. reranks 4 synthetic queries x 100 passages of 128 tokens end to end
+9. reranks 4 synthetic queries x 100 passages of 128 tokens end to end
    through ``llmrankers_tpu_torch.cli.run.main`` on flan-t5-large in bf16
    (setwise heapsort, likelihood, num_child 2, k 10), counting B1's launches;
-9. ``score_labels`` on a random-init flan-t5-xl at full width in W8A8 int8
-   (encoder table at std 1), kernels against the same int8 path on their
-   plain versions: encoder output, label logits, winners;
-10. the decision-parity battery at xl: bf16 against int8 label winners on
+10. ``score_labels`` on a random-init flan-t5-xl at full width in W8A8 int8
+    (encoder table at std 1), kernels against the same int8 path on their
+    plain versions: encoder output, label logits, winners;
+11. the decision-parity battery at xl: bf16 against int8 label winners on
     64 prompts, overall and on the rows with a clear bf16 margin;
-11. the same end-to-end rerank on flan-t5-xl with ``--quantize int8``,
+12. the same end-to-end rerank on flan-t5-xl with ``--quantize int8``,
     counting the launches of B2, B3 and B4;
-12. prints a JSON line of the four kernels, then
+13. ``score_labels`` on a random-init Qwen2.5-3B at full width in bf16, 32
+    setwise prompts of three 128-token passages in the chat template, on the
+    plain (left-padded), shared-prefix and prefix-cache paths, kernel
+    against plain attention: label logits, winners, last hidden states;
+    rows gathering the next group's prefix K/V must fail the gate;
+14. reranks the 4 x 100 input end to end on that Qwen2.5-3B through
+    ``SetwiseLlmRanker.rerank_many`` (inputs from the CLI's ``load_inputs``),
+    counting B5's launches and the engine's programs;
+15. prints a JSON line of the five kernels (with each one's bound on this
+    card and the one-call PyTorch time where there is one), then
     ``{"ok": true, "device": ...}``.
 
 Any failed check raises and the exit code is not 0. Without a CUDA GPU it
-exits with an error before printing anything. It imports nothing of JAX.
-Scratch files go to ``build/chip_smoke/`` in the checkout.
+exits with an error before printing anything. It imports nothing of JAX or of
+the JAX package. Scratch files go to ``build/chip_smoke/`` in the checkout.
 """
 from __future__ import annotations
 
@@ -60,12 +75,12 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA GPU and none is available")
 
-from llmrankers_tpu.models.config import T5Config  # noqa: E402
 from llmrankers_tpu_torch.cli import run as cli_run  # noqa: E402
-from llmrankers_tpu_torch.engine import parity  # noqa: E402
+from llmrankers_tpu_torch.engine import generate, parity  # noqa: E402
 from llmrankers_tpu_torch.engine.engine import ScoringEngine  # noqa: E402
 from llmrankers_tpu_torch.engine.tokenizer import ByteTokenizer  # noqa: E402
-from llmrankers_tpu_torch.models import t5  # noqa: E402
+from llmrankers_tpu_torch.models import decoder, t5  # noqa: E402
+from llmrankers_tpu_torch.models.config import DecoderConfig, T5Config  # noqa: E402
 from llmrankers_tpu_torch.models.quant import quantize_weight  # noqa: E402
 from llmrankers_tpu_torch.ops import _build, flash, int8_matmul  # noqa: E402
 from llmrankers_tpu_torch.rankers.prompts import setwise_prompt  # noqa: E402
@@ -73,7 +88,7 @@ from llmrankers_tpu_torch.rankers.setwise import SetwiseLlmRanker  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
-N_PHASES = 12
+N_PHASES = 15
 SOURCES = ("flash_blhd", "int8_fusedq")
 KERNEL_TOL = 0.05  # bf16 flash kernel vs plain, max |diff| on rows with a valid key
 # Label logits through 24+24 bf16 layers, kernel vs plain: each layer's
@@ -96,12 +111,22 @@ BF16_ULP = 2.0**-7
 # torch.tanh, near tanh = -1 where gelu_new cancels.
 TANH_ALLOWANCE = 1e-5
 N_QUERIES, N_DOCS, PASSAGE_TOKENS = 4, 100, 128
+QUERY_HEADS = ("alpha", "bravo", "charlie", "delta")  # distinct first words
 COUNTERS = {
     "flash_mha_blhd": flash.flash_mha_blhd,
     "flash_mha_packed": flash.flash_mha_packed,
     "quantized_matmul": int8_matmul.quantized_matmul,
     "gated_matmul": int8_matmul.gated_matmul,
+    "flash_mha": flash.flash_mha,
 }
+# H100 SXM data sheet, dense rates at the 700 W limit: the least time a call
+# could take is the larger of its operations over the peak for their type and
+# the bytes it must move (each input read once, each output written once)
+# over the memory rate.
+H100_BF16_FLOPS = 989e12
+H100_INT8_OPS = 1979e12
+H100_BYTES_PER_S = 3.35e12
+NEG = -1e30  # the kernels' masked score, in the masks built for SDPA
 
 
 def _cuda_ms(fn, iters=20, warmup=3) -> float:
@@ -128,6 +153,32 @@ def _in_turns(run_kernel, run_plain, plain_iters=20):
 def _turns_text(runs) -> str:
     kern, plain = runs
     return f"{kern[0]:.4f}/{kern[1]:.4f} vs {plain[0]:.4f}/{plain[1]:.4f}"
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _bound(ops, nbytes, peak):
+    """(least ms on the card, what bounds it)."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _sdpa_ms(q, k, v, mask, scale) -> float:
+    """The one-call PyTorch time: scaled_dot_product_attention on the same
+    [B, H, L, Dh] inputs with the equivalent additive float mask (timing
+    only; the port never calls it). GQA K/V go in as they are."""
+    fn = torch.nn.functional.scaled_dot_product_attention
+    kw = dict(attn_mask=mask, scale=scale)
+    if k.shape[1] != q.shape[1]:
+        kw["enable_gqa"] = True
+    return _cuda_ms(lambda: fn(q, k, v, **kw), iters=10, warmup=2)
+
+
+def _record(err, ms, plain_ms, bound, library_ms):
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library_ms}
 
 
 def phase_device():
@@ -194,9 +245,18 @@ def _attn_case(gen, B, Lq, Lk, causal, table, cfg):
     blind = [name for name, e in ctl.items() if not e > KERNEL_TOL]
     if blind:
         raise AssertionError(f"gate {KERNEL_TOL} passes a wrong bias {blind}: {ctl}")
-    return err, min(ctl.values()), (
-        lambda: flash.flash_mha_blhd(q, k, v, H, bias=bias, **kw)), (
-        lambda: flash.flash_mha_blhd_plain(q, k, v, H, bias=bias, **kw))
+    flops = 4 * Dh * H * Lq * int(mask.sum())  # every query row, each valid key
+
+    def library_ms():
+        heads = [x.unflatten(-1, (H, Dh)).transpose(1, 2) for x in (q, k, v)]
+        pen = ((1 - mask) * NEG).to(q.dtype)[:, None, None, :]
+        return _sdpa_ms(*heads, bias + pen, 1.0)
+
+    return {"err": err, "ctl": min(ctl.values()), "flops": flops,
+            "bound": _bound(flops, _nbytes(q, k, v, got, bias, mask), H100_BF16_FLOPS),
+            "kernel": lambda: flash.flash_mha_blhd(q, k, v, H, bias=bias, **kw),
+            "plain": lambda: flash.flash_mha_blhd_plain(q, k, v, H, bias=bias, **kw),
+            "library_ms": library_ms}
 
 
 def trained_scale_bias(cfg, gen) -> torch.Tensor:
@@ -209,21 +269,21 @@ def trained_scale_bias(cfg, gen) -> torch.Tensor:
 def phase_kernel(cfg):
     gen = torch.Generator(device="cuda").manual_seed(0)
     table = trained_scale_bias(cfg, gen)
-    errs, ctls, timed = [], [], None
-    for B, Lq, Lk, causal in ((32, 512, 512, False), (32, 512, 640, True),
-                              (32, 640, 640, False)):
-        err, ctl, run_kernel, run_plain = _attn_case(gen, B, Lq, Lk, causal, table, cfg)
-        errs.append(err)
-        ctls.append(ctl)
-        timed = (run_kernel, run_plain)  # the last case: B 32, L 640
-    ms, plain_ms, runs = _in_turns(*timed)
+    cases = [_attn_case(gen, B, Lq, Lk, causal, table, cfg)
+             for B, Lq, Lk, causal in ((32, 512, 512, False), (32, 512, 640, True),
+                                       (32, 640, 640, False))]
+    errs, ctls = [c["err"] for c in cases], [c["ctl"] for c in cases]
+    timed = cases[-1]  # B 32, L 640
+    ms, plain_ms, runs = _in_turns(timed["kernel"], timed["plain"])
+    lib, bound = timed["library_ms"](), timed["bound"]
     print(f"[3/{N_PHASES}] B1 flash kernel vs plain, bf16, H16 Dh64, rel-pos bias "
           f"table of std 1: max |diff| {', '.join(f'{e:.4g}' for e in errs)} (L512, "
           f"causal 512x640, L640; tol {KERNEL_TOL}); against a wrong bias (none, next "
           f"head, key or row) at least {min(ctls):.4g}, over tol; all-padding rows "
           f"exactly 0; at B32 L640 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA "
-          f"events, mean of 20 after warm-up, two runs each: {_turns_text(runs)})")
-    return max(errs), ms, plain_ms
+          f"events, mean of 20 after warm-up, two runs each: {_turns_text(runs)}); "
+          f"bound {bound[0]:.4f} ms ({bound[1]}); SDPA with the float mask {lib:.4f} ms")
+    return _record(max(errs), ms, plain_ms, bound, lib)
 
 
 def phase_packed(gen):
@@ -264,13 +324,21 @@ def phase_packed(gen):
     del q, k, v, qb, kb, vb
     ms, plain_ms, runs = _in_turns(lambda: flash.flash_mha_packed(qkv, H, **kw),
                                    lambda: flash.flash_mha_packed_plain(qkv, H, **kw), 5)
+    # Attention: 2*Dh multiply-adds for QK^T and 2*Dh for PV per (head,
+    # query, valid key) pair.
+    bound = _bound(4 * Dh * H * L * int(mask.sum()), _nbytes(qkv, got, bias, mask),
+                   H100_BF16_FLOPS)
+    heads = [x.unflatten(-1, (H, Dh)).transpose(1, 2)
+             for x in qkv.unflatten(-1, (3, HD)).unbind(2)]
+    lib = _sdpa_ms(*heads, bias + ((1 - mask) * NEG).to(qkv.dtype)[:, None, None, :], 1.0)
     ctl_k, ctl_v = ctl.values()
     print(f"[4/{N_PHASES}] B2 packed flash vs plain, bf16, qkv [{B}, {L}, {3 * HD}] "
           f"(xl: H {H}, Dh {Dh}), rel-pos table of std 1, right padding: max |diff| "
           f"{err:.4g} (tol {KERNEL_TOL}); k read at q's offset {ctl_k:.4g}, v at k's "
           f"{ctl_v:.4g}, both over tol; all-padding row exactly 0; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms (CUDA events, two runs each: {_turns_text(runs)})")
-    return err, ms, plain_ms
+          f"plain {plain_ms:.4f} ms (CUDA events, two runs each: {_turns_text(runs)}); "
+          f"bound {bound[0]:.4f} ms ({bound[1]}); SDPA with the float mask {lib:.4f} ms")
+    return _record(err, ms, plain_ms, bound, lib)
 
 
 def _int8_operands(gen, M, K, N):
@@ -328,7 +396,8 @@ def phase_quantized_matmul(gen):
             lambda: int8_matmul.quantized_matmul_plain(x, w8, sw, res), 3)
         tops = 2 * M * K * N / (ms * 1e-3) / 1e12
         cases.append((site, K, N, kb, err, ctl, ms, plain_ms, tops, runs))
-        timed[site] = (err, ms, plain_ms)
+        bound = _bound(2 * M * K * N, _nbytes(x, w8, sw, res, got), H100_INT8_OPS)
+        timed[site] = (err, ms, plain_ms, bound)
         del x, w8, sw, res, got
     text = "; ".join(
         f"{site} [{M}, {K}]x[{K}, {N}] K-block {kb}: max |diff| {err:.4g}, "
@@ -336,10 +405,13 @@ def phase_quantized_matmul(gen):
         f"rolled {ctl['sw rolled']} elements; kernel {ms:.4f} ms ({tops:.1f} TOP/s), "
         f"plain {plain_ms:.4f} ms ({_turns_text(runs)})"
         for site, K, N, kb, err, ctl, ms, plain_ms, tops, runs in cases)
+    bound = timed["qkv"][3]
     print(f"[5/{N_PHASES}] B3 W8A8 GEMM vs plain, bf16 x, gate |diff| <= 2^-7 |want| "
-          f"+ 1e-6 on every element; all-zero rows exactly 0*sw (+ residual); {text}")
-    err = max(e for e, _, _ in timed.values())
-    return err, timed["qkv"][1], timed["qkv"][2]
+          f"+ 1e-6 on every element; all-zero rows exactly 0*sw (+ residual); {text}; "
+          f"bound at qkv {bound[0]:.4f} ms ({bound[1]}); no one PyTorch call computes "
+          f"it (per-row, per-K-block activation quantization)")
+    err = max(t[0] for t in timed.values())
+    return _record(err, timed["qkv"][1], timed["qkv"][2], bound, None)
 
 
 def phase_gated_matmul(gen):
@@ -371,14 +443,125 @@ def phase_gated_matmul(gen):
         lambda: int8_matmul.gated_matmul(x, wp, sp, act="gelu_new"),
         lambda: int8_matmul.gated_matmul_plain(x, wp, sp, "gelu_new"), 3)
     tops = 2 * M * K * 2 * N / (ms * 1e-3) / 1e12
+    bound = _bound(2 * M * K * 2 * N, _nbytes(x, wp, sp, got), H100_INT8_OPS)
     print(f"[6/{N_PHASES}] B4 gated W8A8 GEMM vs plain, wi_g [{M}, {K}]x[{K}, 2x{N}] "
           f"K-block {int8_matmul.kblock(K, N, x.dtype, gated=True)}, gelu_new: max |diff| "
           f"{err:.4g} (gate 2^-7 |want| + 1e-6 + tanh allowance {allowance:.4g}); relu "
           f"{relu_err:.4g}; over the gate with the halves swapped "
           f"{ctl['halves swapped']} and with relu for gelu_new "
           f"{ctl['relu for gelu_new']} elements; kernel {ms:.4f} ms ({tops:.1f} TOP/s), "
-          f"plain {plain_ms:.4f} ms ({_turns_text(runs)})")
-    return err, ms, plain_ms
+          f"plain {plain_ms:.4f} ms ({_turns_text(runs)}); bound {bound[0]:.4f} ms "
+          f"({bound[1]}); no one PyTorch call computes it")
+    return _record(err, ms, plain_ms, bound, None)
+
+
+def _key_mask(gen, B, Lq, Lk, layout):
+    """int32 [B, Lk]: left padding (a decoder prompt batch), or a
+    right-padded prefix then a right-padded suffix (the shared path, with
+    holes between them); the last row is all padding."""
+    dev = "cuda"
+    if layout == "left":
+        lens = torch.randint(Lk // 2, Lk + 1, (B,), generator=gen, device=dev)
+        mask = torch.arange(Lk, device=dev)[None, :] >= (Lk - lens)[:, None]
+    else:
+        Lp = Lk - Lq
+        plen = torch.randint(Lp // 2, Lp + 1, (B,), generator=gen, device=dev)
+        slen = torch.randint(Lq // 2, Lq + 1, (B,), generator=gen, device=dev)
+        mask = torch.cat([torch.arange(Lp, device=dev)[None, :] < plen[:, None],
+                          torch.arange(Lq, device=dev)[None, :] < slen[:, None]], dim=1)
+    mask = mask.int()
+    mask[-1] = 0
+    return mask.contiguous()
+
+
+def _visible(mask, Lq, Lk, window=None):
+    """[B, Lq, Lk] bool: valid keys, causal at offset Lk - Lq, in the window."""
+    rel = (torch.arange(Lq, device=mask.device)[:, None] + (Lk - Lq)
+           - torch.arange(Lk, device=mask.device)[None, :])
+    vis = rel >= 0
+    if window is not None:
+        vis = vis & (rel < window)
+    return vis[None] & mask.bool()[:, None, :]
+
+
+def _b5_case(gen, B, Lq, Lk, H, KV, layout, window=None, Dh=128):
+    """B5 on q/k/v as the decoder gives them: [B, H, L, Dh] transposed
+    views of the [B, L, H*Dh] projections. Returns the error, the controls'
+    errors, the work, the bound, and closures that run the kernel, the plain
+    version and SDPA's timing."""
+    dev = "cuda"
+    q = torch.randn(B, Lq, H, Dh, generator=gen, device=dev).bfloat16().transpose(1, 2)
+    k = torch.randn(B, Lk, KV, Dh, generator=gen, device=dev).bfloat16().transpose(1, 2)
+    v = torch.randn(B, Lk, KV, Dh, generator=gen, device=dev).bfloat16().transpose(1, 2)
+    mask = _key_mask(gen, B, Lq, Lk, layout)
+    kw = dict(kv_mask=mask, causal=True, scale=Dh**-0.5, window=window)
+    got = flash.flash_mha(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all() or got.shape != q.shape:
+        raise AssertionError(f"B5 output: shape {tuple(got.shape)} or not finite")
+    vis = _visible(mask, Lq, Lk, window)
+    blind_rows = ~vis.any(-1)  # [B, Lq]: queries that see no key
+    if got.transpose(1, 2)[blind_rows].count_nonzero().item() != 0:
+        raise AssertionError("B5: queries that see no key (the all-padding row, "
+                             "left-padding positions) are not exactly 0")
+    rows = mask.any(1)  # batch rows with a valid key
+
+    def err_against(want):
+        return (got[rows].float() - want[rows].float()).abs().max().item()
+
+    err = err_against(flash.flash_mha_plain(q, k, v, **kw))
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"B5 kernel vs plain max |diff| {err} > {KERNEL_TOL}")
+    G = H // KV
+    ctl = {"KV head h % KV": err_against(flash.flash_mha_plain(
+        q, k.repeat(1, G, 1, 1), v.repeat(1, G, 1, 1), **kw))}
+    if Lk != Lq:
+        cols = torch.arange(Lk, device=dev)[None, :] > torch.arange(Lq, device=dev)[:, None]
+        off0 = torch.where(cols, NEG, 0.0)[None, None].expand(1, H, Lq, Lk)
+        ctl["causal offset 0"] = err_against(flash.flash_mha_plain(
+            q, k, v, kv_mask=mask, bias=off0, scale=Dh**-0.5))
+    if window is not None:
+        ctl["no window"] = err_against(flash.flash_mha_plain(q, k, v, **{**kw, "window": None}))
+    blind = [name for name, e in ctl.items() if not e > KERNEL_TOL]
+    if blind:
+        raise AssertionError(f"B5 gate {KERNEL_TOL} passes {blind}: {ctl}")
+    flops = 4 * Dh * H * int(vis.sum())  # QK^T and PV over the visible pairs
+    sdpa_mask = torch.where(vis, 0.0, NEG).to(q.dtype)[:, None]  # [B, 1, Lq, Lk]
+    return {"err": err, "ctl": ctl, "flops": flops,
+            "bound": _bound(flops, _nbytes(q, k, v, got, mask), H100_BF16_FLOPS),
+            "kernel": lambda: flash.flash_mha(q, k, v, **kw),
+            "plain": lambda: flash.flash_mha_plain(q, k, v, **kw),
+            "library_ms": lambda: _sdpa_ms(q, k, v, sdpa_mask, Dh**-0.5)}
+
+
+def phase_flash_mha(gen):
+    """B5 at Qwen2.5-3B's attention shapes (c: a Mistral-like window)."""
+    cfg = DecoderConfig.qwen25_3b()
+    H, KV = cfg.num_attention_heads, cfg.num_key_value_heads
+    cases = {"a": (32, 640, 640, H, KV, "left", None),
+             "b": (32, 512, 256 + 512, H, KV, "holes", None),
+             "c": (32, 640, 640, 32, 8, "left", 128)}
+    out, parts = {}, []
+    for name, (B, Lq, Lk, h, kv, layout, window) in cases.items():
+        case = _b5_case(gen, B, Lq, Lk, h, kv, layout, window)
+        err, ctl, bound = case["err"], case["ctl"], case["bound"]
+        ms, plain_ms, runs = _in_turns(case["kernel"], case["plain"], 3)
+        lib = case["library_ms"]()
+        out[name] = _record(err, ms, plain_ms, bound, lib)
+        del case
+        parts.append(
+            f"({name}) B{B} Lq{Lq} Lk{Lk} H{h} KV{kv} {layout} padding"
+            f"{f' window {window}' if window else ''}: max |diff| {err:.4g}; controls "
+            + ", ".join(f"{c} {e:.4g}" for c, e in ctl.items())
+            + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({_turns_text(runs)}), "
+            f"bound {bound[0]:.4f} ms ({bound[1]}), SDPA {lib:.4f} ms")
+        torch.cuda.empty_cache()
+    print(f"[7/{N_PHASES}] B5 GQA flash vs plain, bf16, Dh 128, scale Dh^-0.5, causal "
+          f"(tol {KERNEL_TOL} on rows with a valid key; queries that see no key "
+          f"exactly 0; every control over tol): " + "; ".join(parts))
+    rec = dict(out["a"])  # the dec_labels shape stands for B5 in the summary
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in out.values())
+    return rec
 
 
 def _passage(i: int, text: str) -> str:
@@ -459,7 +642,7 @@ def phase_score_labels(cfg, model):
         raise AssertionError(f"gate {ENC_TOL} passes the encoder without its "
                              f"bias: relative error {enc_ctl}")
     diff, agree, clear = _compare_logits(logits[True], logits[False], "bf16")
-    print(f"[7/{N_PHASES}] score_labels, flan-t5-large random init bf16 (encoder "
+    print(f"[8/{N_PHASES}] score_labels, flan-t5-large random init bf16 (encoder "
           f"rel-pos table of std 1), 32 rows x {max(map(len, rows))} tokens (L bucket "
           f"640): encoder output kernel vs plain relative error {enc_err:.4g} (tol "
           f"{ENC_TOL}), without the bias {enc_ctl:.4g}; label logits kernel vs plain "
@@ -483,7 +666,7 @@ def phase_int8_score_labels(cfg, model):
         raise AssertionError(f"int8 encoder output kernels vs plain: relative error "
                              f"{enc_err} > {INT8_ENC_TOL}")
     diff, agree, clear = _compare_logits(logits[False], logits[True], "int8")
-    print(f"[9/{N_PHASES}] score_labels, flan-t5-xl random init W8A8 int8 (bf16 "
+    print(f"[10/{N_PHASES}] score_labels, flan-t5-xl random init W8A8 int8 (bf16 "
           f"activations, encoder rel-pos table of std 1), 32 rows x "
           f"{max(map(len, rows))} tokens: encoder output kernels vs plain versions "
           f"relative error {enc_err:.4g} (tol {INT8_ENC_TOL}); label logits max |diff| "
@@ -497,7 +680,7 @@ def phase_parity(model):
     res = parity.t5_int8_decision_parity(model)
     if res["winner_agreement_clear_margin"] != 1.0:
         raise AssertionError(f"int8 decision parity on clear-margin rows: {res}")
-    print(f"[10/{N_PHASES}] decision parity, flan-t5-xl random init, bf16 vs W8A8 int8, "
+    print(f"[11/{N_PHASES}] decision parity, flan-t5-xl random init, bf16 vs W8A8 int8, "
           f"{res['prompts']} prompts (bench.py's battery): label winners agree on "
           f"{res['winner_agreement']:.4f} of all rows and "
           f"{res['winner_agreement_clear_margin']:.4f} of the rows with a bf16 margin "
@@ -508,8 +691,9 @@ def _write_inputs():
     os.makedirs(SCRATCH, exist_ok=True)
     paths = {n: os.path.join(SCRATCH, n) for n in ("q.tsv", "c.jsonl", "run.txt", "out.txt")}
     with open(paths["q.tsv"], "w") as f:
-        for qi in range(N_QUERIES):
-            f.write(f"q{qi}\twhich passage is about the gold topic {qi}\n")
+        for qi in range(N_QUERIES):  # distinct within the 32-token query cut
+            f.write(f"q{qi}\t{QUERY_HEADS[qi]}: which passage is about the gold "
+                    f"topic {qi}\n")
     with open(paths["c.jsonl"], "w") as f:
         for d in range(N_DOCS - 1):
             f.write(json.dumps({"id": f"d{d}", "text": _passage(
@@ -583,10 +767,150 @@ def phase_end_to_end(n, preset, quantize=None):
     return launches
 
 
+def _decoder_rows(ranker, n=32):
+    """n setwise prompts of three 128-token passages in the chat template,
+    four queries with distinct heads, so rows of one query share a prefix."""
+    tok = ranker.engine.tokenizer
+    rows = []
+    for i in range(n):
+        g = i % len(QUERY_HEADS)
+        docs = [tok.truncate(_passage(j, f"this passage talks about topic {j}"),
+                             PASSAGE_TOKENS) for j in (3 * i, 3 * i + 1, 3 * i + 2)]
+        text = setwise_prompt(f"{QUERY_HEADS[g]}: what is topic {g}", docs)
+        text = tok.apply_chat_template([{"role": "user", "content": text}]) + " Passage:"
+        rows.append(ranker._encode_prompt(text))
+    return rows
+
+
+def _decoder_engine(cfg, model, path):
+    """A fresh engine on ``model`` for one scoring path (a fresh engine, so a
+    run never reads prefix K/V that another attention mode computed)."""
+    kw = {"plain": dict(prefix_share=False), "shared": dict(prefix_cache_mb=0),
+          "cached": {}}[path]
+    return ScoringEngine("decoder", cfg, model, ByteTokenizer(cfg.vocab_size), **kw)
+
+
+def _shared_last_hidden(engine, rows, roll=0):
+    """The shared path's last hidden states [B, D] (fp32) of the real rows;
+    ``roll`` makes every row gather the K/V of the group ``roll`` after its
+    own."""
+    n, (pids, pmask, gidx, sids, smask), _ = engine._group(rows)
+    if roll:
+        gidx = (gidx + roll) % pids.shape[0]
+    with torch.inference_mode():
+        ks, vs = generate.decoder_prefix_kv(engine.model, pids, pmask)
+        h, _ = generate.decoder_shared_prefill(
+            engine.model, ks.index_select(1, gidx), vs.index_select(1, gidx),
+            pmask.index_select(0, gidx), sids, smask)
+    return h[:n].float()
+
+
+def phase_decoder_score_labels(cfg, model):
+    """Qwen2.5-3B score_labels on the plain, shared and cached paths, kernel
+    (use_flash) against plain attention."""
+    ranker = SetwiseLlmRanker(_decoder_engine(cfg, model, "plain"), num_child=2, k=10,
+                              scoring="likelihood")
+    rows, labels = _decoder_rows(ranker), ranker.label_ids[:3]
+    logits, wall, programs = {}, {}, {}
+    for path in ("plain", "shared", "cached"):
+        for use_flash in (True, False):
+            engine = _decoder_engine(cfg, model, path)
+            model.use_flash = use_flash
+            logits[path, use_flash], wall[path, use_flash] = _timed_scores(
+                engine, rows, labels, [])
+            programs[path] = sorted(engine.programs)
+    model.use_flash = True
+    text = []
+    for path in ("plain", "shared", "cached"):
+        diff, agree, clear = _compare_logits(logits[path, True], logits[path, False], path)
+        text.append(f"{path} ({'+'.join(programs[path])}): max |diff| {diff:.4g}, winners "
+                    f"{agree}/32, {clear} clear rows agree, wall {wall[path, True] * 1e3:.1f}"
+                    f" ms kernel vs {wall[path, False] * 1e3:.1f} ms plain")
+    shared_vs_plain, _, _ = _compare_logits(logits["shared", True], logits["plain", True],
+                                            "shared vs plain path")
+    # Last hidden states: left-padded forward and shared prefill, kernel vs
+    # plain attention; rows gathering the next group's prefix must miss.
+    plain_engine, shared_engine = (_decoder_engine(cfg, model, p) for p in ("plain", "shared"))
+    ids, mask, n, _ = plain_engine._pad_batch(rows, left=True)
+    ids, mask = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+    hid = {}
+    for use_flash in (True, False):
+        model.use_flash = use_flash
+        with torch.inference_mode():
+            hid["plain", use_flash] = model.forward_hidden(ids, mask)[0][:, -1][:n].float()
+        hid["shared", use_flash] = _shared_last_hidden(shared_engine, rows)
+    hid["rolled"] = _shared_last_hidden(shared_engine, rows, roll=1)
+    model.use_flash = True
+    errs = {p: _rel(hid[p, True], hid[p, False]) for p in ("plain", "shared")}
+    errs["shared vs plain path"] = _rel(hid["shared", True], hid["plain", False])
+    bad = {p: e for p, e in errs.items() if not e <= ENC_TOL}
+    if bad:
+        raise AssertionError(f"last hidden state relative error over {ENC_TOL}: {bad}")
+    rolled = _rel(hid["rolled"], hid["shared", False])
+    rolled_logits = float((model.label_logits(hid["rolled"].to(model.embed.dtype), torch.tensor(
+        labels, device="cuda")).float() - torch.from_numpy(logits["shared", False]).cuda()
+                          ).abs().max())
+    if not (rolled > ENC_TOL and rolled_logits > LOGIT_TOL):
+        raise AssertionError(f"gates {ENC_TOL}, {LOGIT_TOL} pass rows that gather the "
+                             f"next group's prefix K/V: relative error {rolled}, logits "
+                             f"{rolled_logits}")
+    print(f"[13/{N_PHASES}] score_labels, Qwen2.5-3B random init bf16, 32 rows x "
+          f"{max(map(len, rows))} tokens, 4 query heads, kernel vs plain attention "
+          f"(logit tol {LOGIT_TOL}): " + "; ".join(text)
+          + f"; shared vs plain path {shared_vs_plain:.4g}; last hidden state relative "
+          f"error " + ", ".join(f"{p} {e:.4g}" for p, e in errs.items())
+          + f" (tol {ENC_TOL}); rows gathering the next group's prefix K/V {rolled:.4g}, "
+          f"logits {rolled_logits:.4g}, both over tol")
+
+
+def phase_decoder_end_to_end(cfg, model):
+    """Rerank the 4 x 100 input on Qwen2.5-3B through SetwiseLlmRanker; the
+    counts are set to 0 just before and read just after."""
+    paths = _write_inputs()
+    args = cli_args(paths, "dec-tiny")  # the model is built here, not from the preset
+    engine = ScoringEngine("decoder", cfg, model, ByteTokenizer(cfg.vocab_size))
+    ranker = cli_run.make_ranker(args, engine)
+    first_stage = cli_run.load_inputs(args, ranker)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    tic = time.perf_counter()
+    results = ranker.rerank_many([q for _, q, _ in first_stage],
+                                 [r for _, _, r in first_stage])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    for (qid, _, ranking), got in zip(first_stage, results):
+        if sorted(d.docid for d in got) != sorted(d.docid for d in ranking) or len(
+                got) != N_DOCS:
+            raise AssertionError(f"{qid}: output is not a ranking of its {N_DOCS} docs")
+    attn = launches["flash_mha"]
+    if attn == 0 or attn % cfg.num_hidden_layers:
+        raise AssertionError(f"{attn} flash_mha launches is not a positive multiple of "
+                             f"{cfg.num_hidden_layers} layers: {launches}")
+    programs = dict(engine.programs)
+    missing = [p for p in ("dec_labels", "prefix_kv") if not programs.get(p)]
+    if not (programs.get("dec_labels_shared") or programs.get("dec_labels_pre")):
+        missing.append("dec_labels_shared/dec_labels_pre")
+    if missing:
+        raise AssertionError(f"the rerank never ran {missing}: {programs}")
+    comps = ranker.stats.comparisons
+    mem = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[14/{N_PHASES}] end to end, SetwiseLlmRanker.rerank_many on Qwen2.5-3B "
+          f"random init bf16 (inputs from load_inputs), setwise heapsort likelihood "
+          f"num_child 2 k 10, {N_QUERIES} queries x {N_DOCS} passages of "
+          f"{PASSAGE_TOKENS} tokens: rerank wall {wall:.3f} s, {N_QUERIES * N_DOCS / wall:.1f}"
+          f" docs/s, {comps} comparisons ({comps / N_QUERIES:.1f} per query); programs "
+          f"{programs}; pkv_stats {engine.pkv_stats}; launches: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + f"; max memory allocated {mem:.2f} GiB")
+    return launches
+
+
 def _kernel_entry(name, source, replaces, launches, measured):
-    err, ms, plain_ms = measured
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "launches": launches, **measured}
 
 
 def main():
@@ -599,6 +923,8 @@ def main():
     b3 = phase_quantized_matmul(gen)
     b4 = phase_gated_matmul(gen)
     torch.cuda.empty_cache()
+    b5 = phase_flash_mha(gen)
+    torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = t5.init_params(large, gen, dtype=torch.bfloat16, device="cuda")
     with torch.no_grad():
@@ -606,7 +932,7 @@ def main():
     phase_score_labels(large, model)
     del model
     torch.cuda.empty_cache()
-    bf16_launches = phase_end_to_end(8, "t5-large")
+    bf16_launches = phase_end_to_end(9, "t5-large")
     torch.cuda.empty_cache()
     model = t5.init_params(xl, gen, dtype=torch.bfloat16, device="cuda")
     with torch.no_grad():
@@ -616,9 +942,16 @@ def main():
     phase_parity(model)
     del model
     torch.cuda.empty_cache()
-    int8_launches = phase_end_to_end(11, "t5-xl", "int8")
+    int8_launches = phase_end_to_end(12, "t5-xl", "int8")
+    torch.cuda.empty_cache()
+    qwen = DecoderConfig.qwen25_3b()
+    model = decoder.init_params(qwen, gen, dtype=torch.bfloat16, device="cuda")
+    phase_decoder_score_labels(qwen, model)
+    torch.cuda.empty_cache()
+    dec_launches = phase_decoder_end_to_end(qwen, model)
+    del model
     csrc, ops = "llmrankers_tpu_torch/csrc/", "llmrankers_tpu/ops/"
-    print(f"[12/{N_PHASES}] kernels and result:")
+    print(f"[15/{N_PHASES}] kernels and result:")
     print(json.dumps({"kernels": [
         _kernel_entry("flash_mha_blhd", csrc + "flash_blhd.cu", ops + "flash.py:373",
                       bf16_launches["flash_mha_blhd"], b1),
@@ -628,6 +961,8 @@ def main():
                       ops + "int8_matmul.py:395", int8_launches["quantized_matmul"], b3),
         _kernel_entry("gated_matmul", csrc + "int8_fusedq.cu",
                       ops + "int8_matmul.py:564", int8_launches["gated_matmul"], b4),
+        _kernel_entry("flash_mha", csrc + "flash_blhd.cu", ops + "flash.py:220",
+                      dec_launches["flash_mha"], b5),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

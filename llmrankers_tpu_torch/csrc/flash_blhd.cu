@@ -1,13 +1,21 @@
-// Flash attention over the projection layout [B, L, H*Dh], bf16, for sm_90a.
+// Flash attention for sm_90a, bf16, over any layout whose head rows are
+// contiguous: [B, L, H*Dh] (the projection layout), [B, H, L, Dh], or views of
+// either, addressed by a batch, a head and a row stride per tensor.
 //
-// Replaces the TPU kernel llmrankers_tpu/ops/flash.py::flash_mha_blhd (body
-// _kernel_blhd): T5 encoder self-attention with an additive batch-invariant
-// [H, Lq, Lk] bias (the relative-position bias), an additive key-padding
-// penalty, an optional causal mask at offset Lk - Lq, no score scaling by
-// default, and an fp32 online softmax. The masking constants are the TPU
-// kernel's: masked scores are -1e30, the running max is floored at -1e28, and
-// the row sum at 1e-30, so a fully masked row (a batch-padding row) comes out
-// as exact zeros, never NaN.
+// Replaces three TPU kernels of llmrankers_tpu/ops/flash.py:
+//   flash_mha_blhd (body _kernel_blhd): T5 encoder self-attention in the
+//     projection layout, head h at column offset h*Dh;
+//   flash_mha_packed: the same on q/k/v views of one packed qkv tensor;
+//   flash_mha (body _kernel): decoder prefill attention on [B, H, L, Dh],
+//     GQA-native (query head h reads K/V head h / G, the repeated K/V is
+//     never materialised) with a causal sliding window in index space.
+// All three: an additive batch-invariant [H, Lq, Lk] bias (the T5
+// relative-position bias), an additive key-padding penalty, an optional
+// causal mask at offset Lk - Lq from the true (unpadded) lengths, a score
+// scale, and an fp32 online softmax. The masking constants are the TPU
+// kernels': masked scores are -1e30, the running max is floored at -1e28, and
+// the row sum at 1e-30, so a fully masked row (a batch-padding row, a
+// left-padding position) comes out as exact zeros, never NaN.
 //
 // Design. One block of four warps per (q-tile of 64 rows, head, batch); each
 // warp owns 16 query rows. A loop over 64-key tiles takes the place of the
@@ -18,14 +26,20 @@
 // tensor cores as mma.m16n8k16 with bf16 operands and fp32 accumulators; the
 // S accumulators are rescaled, masked and exponentiated in registers and
 // re-packed in place as the A fragments of P, so S and P never touch memory.
-// A head is addressed by a row stride and a column offset h*Dh, so the
-// packed qkv layout of flash_mha_packed needs only other strides and bases.
+// A head is addressed by its own stride (Dh in the projection layout, L*Dh
+// in [B, H, L, Dh]), so the packed qkv layout of flash_mha_packed and the
+// transposed projection views of the decoder need only other strides and
+// bases. Causal blocks skip the key tiles past their last visible column and,
+// with a window, the tiles wholly before their first one.
 //
-// What bounds it. At the main path's shapes (flan-t5-large encoder, L 512 to
-// 640, H 16, Dh 64) the work is bound by the tensor-core operations and by
-// the read of the [H, L, L] bias, which every (batch, q-tile) block streams
-// again from L2. This first version issues mma.sync from registers with
-// synchronous global-to-shared copies and no double buffering, so it leaves
+// What bounds it. At the main paths' shapes (flan-t5-large encoder, L 512 to
+// 640, H 16, Dh 64; Qwen2.5-3B prefill, L 128 to 1024, H 16, KV 2, Dh 128)
+// the work is bound by the tensor-core operations and, in T5, by the read of
+// the [H, L, L] bias, which every (batch, q-tile) block streams again from
+// L2. In GQA the G query heads of one KV head read the same K/V tiles, which
+// the L2 serves after the first. This first version issues mma.sync from
+// registers with synchronous global-to-shared copies and no double buffering,
+// so it leaves
 // most of Hopper's tensor-core rate unused. Later work: compute the bias
 // inside the kernel from the [buckets, H] table (it is a function of k - q
 // alone), double-buffer K/V with cp.async or TMA, and move to wgmma.
@@ -48,10 +62,13 @@ struct Params {
   const int32_t* kv_mask;     // [B, Lk] {0, 1}, or null
   const __nv_bfloat16* bias;  // [H, Lq, Lk] contiguous, or null
   __nv_bfloat16* o;
-  long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs;  // in elements
+  // batch, head and row strides, in elements
+  long long q_bs, q_hs, q_rs, k_bs, k_hs, k_rs, v_bs, v_hs, v_rs, o_bs, o_hs, o_rs;
   int lq, lk;
+  int group;  // query heads per K/V head
   float scale;
   int causal;
+  int window;  // causal sliding window in index space; 0 = none
 };
 
 __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
@@ -88,9 +105,10 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int r1 = r0 + 8;
   const int causal_off = p.lk - p.lq;
 
-  const __nv_bfloat16* qb = p.q + b * p.q_bs + h * DH;
-  const __nv_bfloat16* kb = p.k + b * p.k_bs + h * DH;
-  const __nv_bfloat16* vb = p.v + b * p.v_bs + h * DH;
+  const int kvh = h / p.group;
+  const __nv_bfloat16* qb = p.q + b * p.q_bs + h * p.q_hs;
+  const __nv_bfloat16* kb = p.k + b * p.k_bs + kvh * p.k_hs;
+  const __nv_bfloat16* vb = p.v + b * p.v_bs + kvh * p.v_hs;
 
   uint32_t qf[DH / 16][4];
 #pragma unroll
@@ -110,11 +128,15 @@ __global__ void __launch_bounds__(kWarps * 32)
   float m[2] = {kMFloor, kMFloor};
   float l[2] = {0.f, 0.f};  // this thread's partial row sums
 
-  // Causal: keys past the block's last visible column contribute nothing.
-  int k_end = p.lk;
+  // Causal: keys past the block's last visible column contribute nothing;
+  // with a window, neither do the tiles wholly before its first one.
+  int k_end = p.lk, k_begin = 0;
   if (p.causal) k_end = min(k_end, max(0, q0 + kBQ + causal_off));
+  if (p.causal && p.window > 0) {
+    k_begin = max(0, q0 + causal_off - p.window + 1) / kBK * kBK;
+  }
 
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
+  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
     for (int i = threadIdx.x; i < kBK * DH / 8; i += kWarps * 32) {
       const int key = i / (DH / 8), d = (i % (DH / 8)) * 8;
@@ -160,7 +182,10 @@ __global__ void __launch_bounds__(kWarps * 32)
           if (p.kv_mask != nullptr && p.kv_mask[(long long)b * p.lk + col] == 0) {
             x += kNegInf;
           }
-          if (p.causal && col > row + causal_off) x = kNegInf;
+          if (p.causal) {
+            const int rel = row + causal_off - col;
+            if (rel < 0 || (p.window > 0 && rel >= p.window)) x = kNegInf;
+          }
         }
         s[j][e] = x;
         mx[e / 2] = fmaxf(mx[e / 2], x);
@@ -214,7 +239,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
-  __nv_bfloat16* ob = p.o + b * p.o_bs + h * DH;
+  __nv_bfloat16* ob = p.o + b * p.o_bs + h * p.o_hs;
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j) {
     const int c = j * 8 + 2 * t;
@@ -238,14 +263,14 @@ void launch(const Params& p, int batch, int heads, cudaStream_t stream) {
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success). Pointers are
-// device pointers; strides are in elements; kv_mask and bias may be null.
-extern "C" int flash_blhd_bf16(const void* q, const void* k, const void* v,
+// device pointers; strides are in elements, each tensor's as (batch, head,
+// row); kv_mask and bias may be null. `heads` counts query heads, `group`
+// query heads per K/V head; `window` 0 means no sliding window.
+extern "C" int flash_attn_bf16(const void* q, const void* k, const void* v,
                                const void* kv_mask, const void* bias, void* o,
                                int batch, int heads, int lq, int lk, int dh,
-                               long long q_bs, long long q_rs, long long k_bs,
-                               long long k_rs, long long v_bs, long long v_rs,
-                               long long o_bs, long long o_rs, float scale,
-                               int causal, void* stream) {
+                               int group, const long long* strides, float scale,
+                               int causal, int window, void* stream) {
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -253,18 +278,15 @@ extern "C" int flash_blhd_bf16(const void* q, const void* k, const void* v,
   p.kv_mask = static_cast<const int32_t*>(kv_mask);
   p.bias = static_cast<const __nv_bfloat16*>(bias);
   p.o = static_cast<__nv_bfloat16*>(o);
-  p.q_bs = q_bs;
-  p.q_rs = q_rs;
-  p.k_bs = k_bs;
-  p.k_rs = k_rs;
-  p.v_bs = v_bs;
-  p.v_rs = v_rs;
-  p.o_bs = o_bs;
-  p.o_rs = o_rs;
+  long long* const dst[12] = {&p.q_bs, &p.q_hs, &p.q_rs, &p.k_bs, &p.k_hs, &p.k_rs,
+                              &p.v_bs, &p.v_hs, &p.v_rs, &p.o_bs, &p.o_hs, &p.o_rs};
+  for (int i = 0; i < 12; ++i) *dst[i] = strides[i];  // a host array
   p.lq = lq;
   p.lk = lk;
+  p.group = group;
   p.scale = scale;
   p.causal = causal;
+  p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 16: launch<16>(p, batch, heads, s); break;

@@ -5,26 +5,44 @@ The rankers call the engine through a small interface: ``kind``, ``cfg``,
 JAX engine's, line for line, so the port's batches match it row for row:
 token rows are padded into (batch, length) buckets from the same ladders, and
 waves whose B*L exceeds ``max_batch_tokens`` are split at batch-bucket rungs.
-The device half runs eagerly under ``torch.inference_mode()``.
+The device half runs eagerly under ``torch.inference_mode()``; each dispatch
+is one of the JAX engine's programs, and ``programs`` counts them by the JAX
+program name.
 
-Only ``kind="t5"`` and ``score_labels`` are ported, in the model's dtype or
-with ``quantize="int8"``: W8A8 weights packed per ``models.quant.T5_PACKS``,
-with every large-M site on the int8 kernels (their plain versions on the CPU),
-the same route on every device. The rest of the JAX engine raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+``score_labels`` is ported for both kinds:
+
+- ``kind="t5"`` (program ``t5_labels``), in the model's dtype or with
+  ``quantize="int8"``: W8A8 weights packed per ``models.quant.T5_PACKS``,
+  every large-M site on the int8 kernels (their plain versions on the CPU).
+- ``kind="decoder"``: left-padded rows (``dec_labels``), or, when prompts of
+  a chunk share a long prefix (``engine/prefix.py``), the unique prefixes run
+  once and every row gathers its group's K/V (``dec_labels_shared``). With
+  ``prefix_cache_mb`` > 0 the prefix K/V is kept across calls in an LRU
+  cache under a byte budget: missing prefixes run in one ``prefix_kv``
+  dispatch, and the rows run on the cached K/V (``dec_labels_pre``). Flash
+  is on when the device is CUDA; rows are cut to the model context.
+
+The rest of the JAX engine raises ``NotImplementedError`` naming the ROADMAP
+item that ports it. The host modules come from the port's own copies
+(``utils/native.py``, ``engine/prefix.py``).
 """
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence, Tuple
+import collections
+import sys
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from llmrankers_tpu.models.config import T5Config
-from llmrankers_tpu.utils import native
-
+from ..models.config import DecoderConfig, T5Config
+from ..models.decoder import Decoder
 from ..models.quant import quantize_t5_params
 from ..models.t5 import T5
+from ..utils import native
+from . import generate as gen_mod
+from . import prefix as prefix_mod
 from .tokenizer import Tokenizer
 
 # The JAX engine's ladders (tuned on TPU v5e), kept so the port's batches
@@ -44,33 +62,49 @@ def _bucket(n: int, ladder: Sequence[int]) -> int:
 
 
 class ScoringEngine:
-    """One T5 model + tokenizer on one torch device."""
+    """One T5 or decoder-only model + tokenizer on one torch device."""
 
     def __init__(
         self,
-        kind: str,  # 't5' ('decoder' is not ported yet)
-        cfg: T5Config,
-        model: T5,
+        kind: str,  # 't5' | 'decoder'
+        cfg: Any,  # T5Config | DecoderConfig
+        model: Any,  # T5 | Decoder
         tokenizer: Tokenizer,
         device: Optional[Any] = None,  # default: the model's device
         len_buckets: Sequence[int] = DEFAULT_LEN_BUCKETS,
         batch_buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS,
         max_batch_tokens: int = 2**17,
-        quantize: Optional[str] = None,  # None | 'int8' (weights)
+        quantize: Optional[str] = None,  # None | 'int8' (T5 weights)
+        kv_quantize: Optional[str] = None,  # not ported (decoder KV)
+        prefix_share: bool = True,  # share prompt-prefix KV (decoder kind)
+        # Cross-wave prefix-KV cache budget (decoder kind): unique prompt
+        # prefixes' per-layer K/V kept on device across calls, so a sort's
+        # successive waves skip the prefix forward. 0 disables.
+        prefix_cache_mb: int = 256,
     ):
-        if kind != "t5":
-            raise NotImplementedError(
-                f"kind={kind!r}: decoder-only models are not ported yet "
-                "(ROADMAP A7)")
+        types = {"t5": (T5Config, T5), "decoder": (DecoderConfig, Decoder)}
+        if kind not in types:
+            raise ValueError(f"unknown model kind {kind!r}")
         if isinstance(len_buckets, str):
             raise NotImplementedError(
                 "len_buckets 'auto' is not ported yet (ROADMAP A15)")
+        if not isinstance(cfg, types[kind][0]) or not isinstance(model, types[kind][1]):
+            raise TypeError(f"kind={kind!r} takes a {types[kind][0].__name__} and a "
+                            f"{types[kind][1].__name__}, got {type(cfg).__name__} "
+                            f"and {type(model).__name__}")
         if model.cfg != cfg:
             raise ValueError("cfg differs from the model's config")
+        if kv_quantize is not None:
+            raise NotImplementedError("quantized KV caches are not ported yet "
+                                      "(ROADMAP A8)")
         if quantize is not None:
             # The JAX engine's errors (engine.py:155-162).
             if quantize not in ("int8", "int4"):
                 raise ValueError(f"unknown quantize mode {quantize!r}")
+            if kind == "decoder":
+                raise NotImplementedError(
+                    f"quantize={quantize!r} on decoder models is not ported yet "
+                    "(ROADMAP A9)")
             if quantize == "int4":
                 raise ValueError(
                     "quantize='int4' targets decoder models (T5 scoring"
@@ -83,33 +117,84 @@ class ScoringEngine:
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.device = (torch.device(device) if device is not None
+                       else model.embed.device if kind == "decoder"
                        else model.shared.device)
         self.model = model.to(self.device)
+        if kind == "decoder":
+            self.model.use_flash = self.device.type == "cuda"
         self.len_buckets = tuple(len_buckets)
         self.batch_buckets = tuple(batch_buckets)
         self.max_batch_tokens = max_batch_tokens
-        # Rows whose real tokens were cut to the model context. T5's
-        # relative-position buckets saturate, so T5 rows are never cut.
+        # Rows whose real tokens were cut to the model context (decoder
+        # RoPE range; T5's relative-position buckets saturate, so T5 rows
+        # are never cut).
         self.truncated_rows = 0
+        self._warned_ctx = False
+        # Prompt-prefix KV sharing (decoder models only; T5's bidirectional
+        # encoder makes prefix reuse inexact, so it never applies there).
+        self.prefix_share = prefix_share and kind == "decoder"
+        # Cross-wave prefix-KV cache: prefix tokens -> (ks [Ld, KV, len, Dh],
+        # vs, nbytes), LRU-evicted to the byte budget. Entries are stored at
+        # their exact prefix length (K/V at real positions does not depend
+        # on padding: absolute RoPE, masked attention).
+        self._pkv: "collections.OrderedDict[Any, Any]" = collections.OrderedDict()
+        self._pkv_bytes = 0
+        self._pkv_budget = int(prefix_cache_mb) * (1 << 20) if self.prefix_share else 0
+        self.pkv_stats = {"hits": 0, "misses": 0, "evictions": 0}
+        # Dispatches by the JAX engine's program name.
+        self.programs: "collections.Counter[str]" = collections.Counter()
 
     # ------------------------------------------------------------------
-    # Host-side padding and chunking (JAX engine: _pad_batch, _chunks)
+    # Host-side padding, capping and chunking (JAX engine: _pad_batch,
+    # _ctx_cap, _cap_len, _group, _chunks)
     # ------------------------------------------------------------------
-    def _pad_batch(self, rows: List[List[int]]) -> Tuple[np.ndarray, np.ndarray, int, int]:
-        """Right-pad token rows into a (batch, length) bucket."""
+    def _pad_batch(
+        self, rows: List[List[int]], left: bool = False,
+        b_cap: Optional[int] = None, l_force: Optional[int] = None,
+    ) -> Tuple[np.ndarray, np.ndarray, int, int]:
+        """Pad token rows into a (batch, length) bucket: right padding for
+        T5 prompts and decoder prefixes/suffixes, left padding for whole
+        decoder prompts. ``b_cap`` bounds the batch bucket (the padded batch
+        is then the row count), ``l_force`` pins the padded length."""
         n = len(rows)
         max_len = max((len(r) for r in rows), default=1)
-        L = _bucket(max_len, self.len_buckets)
+        if l_force is not None:
+            L = l_force
+        else:
+            L = self._cap_len(_bucket(max_len, self.len_buckets), max_len)
+        if L < max_len:  # context cap hit: count every truncated row
+            self.truncated_rows += sum(1 for r in rows if len(r) > L)
         B = _bucket(n, self.batch_buckets)
-        ids, mask = native.pack_padded(rows, B, L, self.tokenizer.pad_id, False)
+        if b_cap is not None and B > b_cap:
+            B = n
+        ids, mask = native.pack_padded(rows, B, L, self.tokenizer.pad_id, left)
         return ids, mask, n, B
+
+    def _ctx_cap(self) -> int:
+        """Hard context cap: decoder RoPE positions past
+        max_position_embeddings are outside the trained range. T5 rel-pos
+        buckets saturate gracefully — no cap (returns 0)."""
+        return self.cfg.max_position_embeddings if self.kind == "decoder" else 0
+
+    def _cap_len(self, L: int, max_len: int) -> int:
+        """Apply the context cap to a padded length, warning once when it
+        truncates real tokens (tail kept for left padding, head for right
+        — pack_padded's convention)."""
+        cap = self._ctx_cap()
+        if cap and L > cap:
+            if max_len > cap and not self._warned_ctx:
+                self._warned_ctx = True
+                print(f"warning: truncating rows of {max_len} tokens to "
+                      f"the model context ({cap})", file=sys.stderr)
+            L = cap
+        return L
 
     def _chunks(self, rows: List[List[int]]):
         """Split a wave so B*L stays under max_batch_tokens, each full chunk
         landing on a batch-bucket rung (no systematic row padding)."""
         if not rows:
             return
-        L = _bucket(max(len(r) for r in rows), self.len_buckets)
+        L = self._cap_len(_bucket(max(len(r) for r in rows), self.len_buckets), 0)
         per = max(1, self.max_batch_tokens // L)
         fitting = [b for b in self.batch_buckets if b <= per]
         if fitting:
@@ -117,43 +202,172 @@ class ScoringEngine:
         for i in range(0, len(rows), per):
             yield i, rows[i: i + per]
 
+    def _to_device(self, *arrays: np.ndarray) -> Tuple[torch.Tensor, ...]:
+        return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+
+    def _group(self, chunk: List[List[int]]):
+        """Shared-prefix grouping of a chunk (decoder kind only).
+
+        Returns (n, device args (pids, pmask, gidx, sids, smask), the unique
+        prefixes' token lists) when sharing pays off, else None. Rows keep
+        their original order; only the prefix compute is deduplicated."""
+        if not self.prefix_share:
+            return None
+        grp = prefix_mod.group_shared_prefixes(chunk)
+        if grp is None:
+            return None
+        pre_rows, gidx, suf_rows = grp
+        # Prefix and suffix are padded separately, so the plain path's
+        # context cap cannot see the combined length: rows that would
+        # exceed it take the ungrouped path, which truncates them.
+        cap = self._ctx_cap()
+        if cap and any(len(pre_rows[g]) + len(s) > cap for g, s in zip(gidx, suf_rows)):
+            return None
+        # The prefix batch is the true group count, not a batch bucket.
+        pids, pmask, _, _ = self._pad_batch(pre_rows, b_cap=len(pre_rows))
+        sids, smask, n, B = self._pad_batch(suf_rows)
+        gvec = np.zeros((B,), np.int64)
+        gvec[: len(gidx)] = gidx
+        return n, self._to_device(pids, pmask, gvec, sids, smask), pre_rows
+
+    def _pkv_assemble(self, pre_rows: List[List[int]], Lp: int):
+        """Cross-wave prefix-KV cache lookup and fill for one wave.
+
+        Returns ``(ks, vs)`` shaped [Ld, G, KV, Lp, Dh] covering the wave's
+        unique prefixes (cached entries padded with zeros to the wave's
+        prefix area Lp, missing ones computed in ONE ``prefix_kv`` dispatch
+        and inserted, LRU under the byte budget), or None when the cache is
+        off. A sort's successive waves re-score the same query heads, so
+        the cache dedups the prefix forward across dispatches."""
+        if self._pkv_budget <= 0:
+            return None
+        keys = [tuple(p) for p in pre_rows]
+        got: Dict[int, Any] = {}
+        misses: List[int] = []
+        for g, key in enumerate(keys):
+            e = self._pkv.get(key)
+            if e is None:
+                misses.append(g)
+            else:
+                self._pkv.move_to_end(key)
+                got[g] = (e[0], e[1])
+        self.pkv_stats["hits"] += len(got)
+        self.pkv_stats["misses"] += len(misses)
+        if misses:
+            mids, mmask, _, _ = self._pad_batch(
+                [pre_rows[g] for g in misses], b_cap=len(misses), l_force=Lp)
+            self.programs["prefix_kv"] += 1
+            ks_m, vs_m = gen_mod.decoder_prefix_kv(self.model, *self._to_device(mids, mmask))
+            for j, g in enumerate(misses):
+                # Stored at the true length (>= 1 so an empty singleton
+                # prefix stays indexable; its pmask row is all 0, so the
+                # value is never attended), as copies that own their bytes.
+                Lr = max(1, len(pre_rows[g]))
+                ek = ks_m[:, j, :, :Lr, :].clone()
+                ev = vs_m[:, j, :, :Lr, :].clone()
+                got[g] = (ek, ev)
+                nbytes = ek.numel() * ek.element_size() * 2
+                old = self._pkv.pop(keys[g], None)
+                if old is not None:
+                    self._pkv_bytes -= old[2]
+                self._pkv[keys[g]] = (ek, ev, nbytes)
+                self._pkv_bytes += nbytes
+            while self._pkv_bytes > self._pkv_budget and self._pkv:
+                _, (_, _, eb) = self._pkv.popitem(last=False)
+                self._pkv_bytes -= eb
+                self.pkv_stats["evictions"] += 1
+        ks_list, vs_list = [], []
+        for g in range(len(pre_rows)):
+            ek, ev = got[g]
+            pad = (0, 0, 0, Lp - ek.shape[2])
+            ks_list.append(F.pad(ek, pad))
+            vs_list.append(F.pad(ev, pad))
+        return torch.stack(ks_list, dim=1), torch.stack(vs_list, dim=1)
+
     # ------------------------------------------------------------------
-    # score_labels: one forward, label-token logits
+    # Programs (the JAX engine's jitted programs, run eagerly)
     # ------------------------------------------------------------------
     def _t5_labels(self, ids: np.ndarray, mask: np.ndarray, labels: torch.Tensor,
                    prefix: Tuple[int, ...]) -> torch.Tensor:
-        """The JAX engine's ``t5_labels`` program: encode, decode the forced
-        prefix, label logits at its last position, fp32 [B, K]."""
-        ids_t = torch.from_numpy(ids).to(self.device)
-        mask_t = torch.from_numpy(mask).to(self.device)
+        """``t5_labels``: encode, decode the forced prefix, label logits at
+        its last position, fp32 [B, K]."""
+        self.programs["t5_labels"] += 1
+        ids_t, mask_t = self._to_device(ids, mask)
         pref = torch.tensor(prefix, device=self.device).expand(ids.shape[0], -1)
         enc_out = self.model.encode(ids_t, mask_t)
         hidden = self.model.decode_hidden(pref, enc_out, mask_t)
         return self.model.label_logits(hidden[:, -1, :], labels).float()
 
+    def _dec_labels(self, ids: np.ndarray, mask: np.ndarray,
+                    labels: torch.Tensor) -> torch.Tensor:
+        """``dec_labels``: a left-padded forward; the last position is each
+        row's last real token."""
+        self.programs["dec_labels"] += 1
+        hidden, _ = self.model.forward_hidden(*self._to_device(ids, mask))
+        return self.model.label_logits(hidden[:, -1, :], labels).float()
+
+    def _dec_labels_on(self, ks, vs, pmask, gidx, sids, smask, labels) -> torch.Tensor:
+        """Rows gather their group's prefix K/V and prefill their suffixes."""
+        last_h, _ = gen_mod.decoder_shared_prefill(
+            self.model, ks.index_select(1, gidx), vs.index_select(1, gidx),
+            pmask.index_select(0, gidx), sids, smask)
+        return self.model.label_logits(last_h, labels).float()
+
+    def _dec_labels_shared(self, pids, pmask, gidx, sids, smask, labels) -> torch.Tensor:
+        """``dec_labels_shared``: the unique prefixes' forward, then the
+        suffixes on top of it."""
+        self.programs["dec_labels_shared"] += 1
+        ks, vs = gen_mod.decoder_prefix_kv(self.model, pids, pmask)
+        return self._dec_labels_on(ks, vs, pmask, gidx, sids, smask, labels)
+
+    def _dec_labels_pre(self, ks, vs, pmask, gidx, sids, smask, labels) -> torch.Tensor:
+        """``dec_labels_pre``: the suffixes on cache-assembled prefix K/V."""
+        self.programs["dec_labels_pre"] += 1
+        return self._dec_labels_on(ks, vs, pmask, gidx, sids, smask, labels)
+
+    # ------------------------------------------------------------------
+    # score_labels: one forward, label-token logits
+    # ------------------------------------------------------------------
     def score_labels(
         self,
         prompt_rows: List[List[int]],
         label_ids: Sequence[int],
         decoder_prefix: Sequence[int] = (),
         adapter: Optional[str] = None,
+        row_adapters: Optional[Sequence[Optional[str]]] = None,
     ) -> np.ndarray:
         """[N, K] fp32 logits of each label token at the first free decoder
-        position (after the forced prefix; an empty prefix means the
-        decoder start token)."""
-        if adapter is not None:
+        position: T5 after the forced prefix (an empty prefix means the
+        decoder start token); decoder-only after the prompt's last real
+        token (``decoder_prefix`` is not used there)."""
+        if adapter is not None or row_adapters is not None:
             raise NotImplementedError("LoRA adapters are not ported yet (ROADMAP A10)")
         out = np.zeros((len(prompt_rows), len(label_ids)), np.float32)
         labels = torch.tensor([int(x) for x in label_ids], device=self.device)
-        prefix = tuple(int(x) for x in decoder_prefix) or (
-            int(self.cfg.decoder_start_token_id),)
+        prefix = tuple(int(x) for x in decoder_prefix)
+        if self.kind == "t5" and not prefix:
+            prefix = (int(self.cfg.decoder_start_token_id),)
         # Enqueue every chunk before reading any back, so host padding of
         # chunk i+1 overlaps device compute of chunk i.
         pending = []
         with torch.inference_mode():
             for off, chunk in self._chunks(prompt_rows):
-                ids, mask, n, _ = self._pad_batch(chunk)
-                pending.append((off, n, self._t5_labels(ids, mask, labels, prefix)))
+                if self.kind == "t5":
+                    ids, mask, n, _ = self._pad_batch(chunk)
+                    pending.append((off, n, self._t5_labels(ids, mask, labels, prefix)))
+                    continue
+                grp = self._group(chunk)
+                if grp is None:
+                    ids, mask, n, _ = self._pad_batch(chunk, left=True)
+                    res = self._dec_labels(ids, mask, labels)
+                else:
+                    n, args, pre_rows = grp
+                    pre = self._pkv_assemble(pre_rows, args[0].shape[1])
+                    if pre is None:
+                        res = self._dec_labels_shared(*args, labels)
+                    else:
+                        res = self._dec_labels_pre(*pre, *args[1:], labels)
+                pending.append((off, n, res))
             for off, n, res in pending:
                 out[off: off + n] = res[:n].cpu().numpy()
         return out

@@ -4,9 +4,9 @@ Tokenization is host work, so the port keeps the same classes: the
 ``Tokenizer`` interface, the deterministic ``ByteTokenizer`` that tests and
 benchmarks use with no network, and ``HFTokenizer``, which imports
 ``transformers`` only when one is built from a local tokenizer directory.
-Chat templates serve the decoder-only models and come with them (ROADMAP
-A7). (``llmrankers_tpu.engine``'s package init imports the JAX engine, so
-this module is a copy, not an import.)
+``apply_chat_template`` wraps the decoder-only models' prompts; Vicuna v1.5
+ships no chat template, so ``HFTokenizer`` installs ``VICUNA_CHAT_TEMPLATE``
+for it, as the reference does.
 """
 from __future__ import annotations
 
@@ -29,6 +29,28 @@ class Tokenizer:
     def truncate(self, text: str, length: int) -> str:
         raise NotImplementedError
 
+    def apply_chat_template(
+        self, messages: List[dict], add_generation_prompt: bool = True
+    ) -> str:
+        raise NotImplementedError
+
+
+VICUNA_CHAT_TEMPLATE = (
+    "{% if messages[0]['role'] == 'system' %}{% set loop_messages = messages[1:] %}"
+    "{% set system_message = messages[0]['content'] %}{% else %}"
+    "{% set loop_messages = messages %}{% set system_message = 'A chat between a "
+    "curious user and an artificial intelligence assistant. The assistant gives "
+    "helpful, detailed, and polite answers to the user\\'s questions.' %}{% endif %}"
+    "{% for message in loop_messages %}"
+    "{% if (message['role'] == 'user') != (loop.index0 % 2 == 0) %}"
+    "{{ raise_exception('Conversation roles must alternate user/assistant/...') }}"
+    "{% endif %}{% if loop.index0 == 0 %}{{ system_message }}{% endif %}"
+    "{% if message['role'] == 'user' %}{{ ' USER: ' + message['content'].strip() }}"
+    "{% elif message['role'] == 'assistant' %}"
+    "{{ ' ASSISTANT: ' + message['content'].strip() + eos_token }}{% endif %}"
+    "{% endfor %}{% if add_generation_prompt %}{{ ' ASSISTANT:' }}{% endif %}"
+)
+
 
 class HFTokenizer(Tokenizer):
     """Wraps a local HF tokenizer directory (no network)."""
@@ -37,6 +59,9 @@ class HFTokenizer(Tokenizer):
         from transformers import AutoTokenizer
 
         self.tk = AutoTokenizer.from_pretrained(path, local_files_only=True)
+        # Vicuna v1.5 ships no chat template; the reference installs one.
+        if "vicuna" in path and "v1.5" in path:
+            self.tk.chat_template = VICUNA_CHAT_TEMPLATE
         self.pad_id = self.tk.pad_token_id if self.tk.pad_token_id is not None else 0
         self.eos_id = self.tk.eos_token_id if self.tk.eos_token_id is not None else 1
         self.vocab_size = len(self.tk)
@@ -49,6 +74,13 @@ class HFTokenizer(Tokenizer):
 
     def truncate(self, text: str, length: int) -> str:
         return self.tk.convert_tokens_to_string(self.tk.tokenize(text)[:length])
+
+    def apply_chat_template(
+        self, messages: List[dict], add_generation_prompt: bool = True
+    ) -> str:
+        return self.tk.apply_chat_template(
+            messages, tokenize=False, add_generation_prompt=add_generation_prompt
+        )
 
 
 class ByteTokenizer(Tokenizer):
@@ -90,3 +122,11 @@ class ByteTokenizer(Tokenizer):
 
     def truncate(self, text: str, length: int) -> str:
         return text.encode("utf-8")[:length].decode("utf-8", errors="ignore")
+
+    def apply_chat_template(
+        self, messages: List[dict], add_generation_prompt: bool = True
+    ) -> str:
+        parts = [f"<|{m['role']}|>\n{m['content']}\n" for m in messages]
+        if add_generation_prompt:
+            parts.append("<|assistant|>\n")
+        return "".join(parts)

@@ -34,13 +34,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from llmrankers_tpu.models.config import T5Config
-
 from ..ops.attention import gelu_new, mha_flat, rms_norm
 from ..ops.flash import (flash_mha_blhd, flash_mha_blhd_plain, flash_mha_packed,
                          flash_mha_packed_plain)
 from ..ops.int8_matmul import (gated_matmul, gated_matmul_plain, quantized_matmul,
                                quantized_matmul_plain)
+from .config import T5Config
 from .quant import SCALE_SUFFIX, int8_layer_specs
 
 

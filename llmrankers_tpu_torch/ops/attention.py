@@ -1,31 +1,55 @@
-"""Attention, normalisation and activation ops in plain PyTorch.
+"""Attention, normalisation, activation and RoPE ops in plain PyTorch.
 
 Counterpart of ``llmrankers_tpu/ops/attention.py``'s XLA path, with the same
 semantics: einsum scores accumulated in fp32, the additive T5 bias, masking by
-``where`` with -1e9, softmax in fp32. The hand-written flash kernel lives in
-:mod:`.flash`; the T5 encoder calls it there, every other attention here.
+``where`` with -1e9, softmax in fp32. :func:`mha` is the semantic definition
+and dispatches to the hand-written flash kernel (:func:`.flash.flash_mha`)
+under the JAX rule: flash on, no dense mask, Lq >= 128. The T5 encoder calls
+the ``[B, L, H*Dh]`` flash wrappers of :mod:`.flash` itself.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+
+from .flash import flash_mha
 
 NEG_INF = -1e9  # large-negative mask value, safe in bf16
 
 
 def mha(
     q: torch.Tensor,  # [B, H, Lq, Dh]
-    k: torch.Tensor,  # [B, H, Lk, Dh]
-    v: torch.Tensor,  # [B, H, Lk, Dh]
+    k: torch.Tensor,  # [B, KV, Lk, Dh], KV | H
+    v: torch.Tensor,  # [B, KV, Lk, Dh]
+    mask: Optional[torch.Tensor] = None,  # [B, 1|H, Lq, Lk] bool (plain path only)
     kv_mask: Optional[torch.Tensor] = None,  # [B, Lk] {0,1} key validity
     causal: bool = False,
     bias: Optional[torch.Tensor] = None,  # [1|B, H, Lq, Lk] additive
     scale: Optional[float] = None,  # None -> 1/sqrt(Dh); T5 passes 1.0
+    use_flash: bool = False,
+    window: Optional[int] = None,  # causal sliding window, index space
 ) -> torch.Tensor:
-    """Multi-head attention, returns [B, H, Lq, Dh] in q's dtype."""
+    """Multi-head attention, returns [B, H, Lq, Dh] in q's dtype.
+
+    GQA-native: ``k``/``v`` may carry fewer (KV) heads than ``q``; query
+    head h reads K/V head h // G. The flash kernel reads them as they are;
+    the plain path repeats them here. ``window`` bounds causal attention to
+    the previous ``window`` positions in INDEX space, exact for one
+    contiguously padded block; callers with padding holes (a prefix before
+    a suffix) pass a dense positional ``mask`` instead, which only the plain
+    path takes."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if window is not None and not causal:
+        raise ValueError("window requires causal attention")
+    if use_flash and mask is None and q.shape[2] >= 128:
+        return flash_mha(q, k, v, kv_mask=kv_mask, causal=causal, bias=bias,
+                         scale=scale, window=window)
+    if k.shape[1] != q.shape[1]:  # GQA repeat for the plain path only
+        rep = q.shape[1] // k.shape[1]
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
     dtype = q.dtype
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if bias is not None:
@@ -34,9 +58,14 @@ def mha(
         scores = scores.masked_fill(~kv_mask.bool()[:, None, None, :], NEG_INF)
     if causal:
         Lq, Lk = q.shape[2], k.shape[2]
-        rows = torch.arange(Lq, device=q.device)[:, None]
-        cols = torch.arange(Lk, device=q.device)[None, :]
-        scores = scores.masked_fill(cols > rows + (Lk - Lq), NEG_INF)
+        rel = (torch.arange(Lq, device=q.device)[:, None] + (Lk - Lq)
+               - torch.arange(Lk, device=q.device)[None, :])
+        tri = rel >= 0
+        if window is not None:
+            tri = tri & (rel < window)
+        scores = scores.masked_fill(~tri, NEG_INF)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", probs.to(dtype).float(), v.float())
     return out.to(dtype)
@@ -77,3 +106,28 @@ def gelu_new(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (
         1.0 + torch.tanh(0.7978845608028654 * (x + 0.044715 * torch.pow(x, 3.0)))
     )
+
+
+def rotate_half(x: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                 dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for RoPE at the given positions: [..., head_dim],
+    computed in fp32 and cast to ``dtype`` (the activation dtype), so RoPE
+    itself runs in that dtype, as in JAX."""
+    inv_freq = 1.0 / (theta ** (
+        torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device)
+        / head_dim))
+    freqs = positions.float()[..., None] * inv_freq  # [..., Dh/2]
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return emb.cos().to(dtype), emb.sin().to(dtype)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: [B, H, L, Dh]; cos/sin: [B, L, Dh] (broadcast over heads)."""
+    cos = cos[:, None, :, :]
+    sin = sin[:, None, :, :]
+    return x * cos + rotate_half(x) * sin

@@ -1,14 +1,22 @@
-"""Flash attention over the [B, L, H*Dh] layout: wrappers, plain versions,
-counts.
+"""Flash attention: wrappers, plain versions, counts.
 
-Counterparts of ``llmrankers_tpu/ops/flash.py::flash_mha_blhd`` and
-``::flash_mha_packed``. On a CUDA tensor :func:`flash_mha_blhd` launches the
-hand-written kernel ``csrc/flash_blhd.cu`` (bf16, ``sm_90a``) or raises; on a
-CPU tensor it runs :func:`flash_mha_blhd_plain`, which computes what the
-kernel computes with the TPU kernel's masking constants, so fully masked rows
-come out as zeros. :func:`flash_mha_packed` runs the same kernel on q, k and
-v read straight out of one packed ``[B, L, 3*H*Dh]`` qkv projection: three
-strided views at column offsets 0, H*Dh and 2*H*Dh, no slice copies.
+Counterparts of ``llmrankers_tpu/ops/flash.py::flash_mha_blhd``,
+``::flash_mha_packed`` and ``::flash_mha``. Each wrapper, on a CUDA tensor,
+launches the hand-written kernel ``csrc/flash_blhd.cu`` (bf16, ``sm_90a``)
+or raises; on a CPU tensor it runs its plain version, which computes what
+the kernel computes with the TPU kernel's masking constants, so fully masked
+rows come out as zeros. The kernel addresses every tensor by batch, head and
+row strides:
+
+- :func:`flash_mha_blhd` on the ``[B, L, H*Dh]`` projection layout (head
+  stride Dh);
+- :func:`flash_mha_packed` on q, k and v read straight out of one packed
+  ``[B, L, 3*H*Dh]`` qkv projection: three strided views at column offsets
+  0, H*Dh and 2*H*Dh, no slice copies;
+- :func:`flash_mha` on ``[B, H, L, Dh]`` (any strides with contiguous head
+  rows), GQA-native: K/V may carry fewer heads, query head h reads K/V head
+  h // G, and the repeated K/V is never built. It adds a causal sliding
+  window in index space.
 """
 from __future__ import annotations
 
@@ -62,22 +70,25 @@ def flash_mha_blhd_plain(
     return out.transpose(1, 2).reshape(B, Lq, HD).to(q.dtype)
 
 
+_STRIDES = ctypes.c_longlong * 12
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_blhd")
-    fn = lib.flash_blhd_bf16
+    fn = lib.flash_attn_bf16
     if fn.argtypes is None:
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = (
-            [ptr] * 6 + [i32] * 5 + [i64] * 8 + [ctypes.c_float, i32, ptr]
+            [ptr] * 6 + [i32] * 6 + [_STRIDES, ctypes.c_float, i32, i32, ptr]
         )
         fn.restype = ctypes.c_int
     return lib
 
 
 def _check_rows(name: str, x: torch.Tensor) -> None:
-    """The kernel reads rows with 16-byte loads: unit last stride, row and
-    batch strides in whole 8-element groups, a 16-byte aligned base."""
-    if x.stride(-1) != 1 or x.stride(0) % 8 or x.stride(1) % 8:
+    """The kernel reads rows with 16-byte loads: unit last stride, every
+    other stride in whole 8-element groups, a 16-byte aligned base."""
+    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]):
         raise ValueError(f"{name}: rows must be contiguous with strides "
                          f"divisible by 8, got strides {tuple(x.stride())}")
     if x.data_ptr() % 16:
@@ -115,18 +126,38 @@ flash_mha_blhd.launches = 0
 
 
 def _launch(q, k, v, num_heads, kv_mask, causal, bias, scale) -> torch.Tensor:
-    """Check q/k/v (views allowed) and launch flash_blhd.cu on them."""
+    """Launch the kernel on [B, L, H*Dh] q/k/v (views allowed): each as a
+    [B, H, L, Dh] view with head stride Dh."""
     B, Lq, HD = q.shape
-    Lk = k.shape[1]
     if HD % num_heads:
         raise ValueError(f"H*Dh={HD} is not divisible by num_heads={num_heads}")
-    Dh = HD // num_heads
-    if Dh % 16 or Dh > 128:
-        raise ValueError(f"flash kernel needs Dh % 16 == 0 and Dh <= 128, got {Dh}")
-    if k.shape != (B, Lk, HD) or v.shape != k.shape:
+    if k.shape != (B, k.shape[1], HD) or v.shape != k.shape:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    Dh = HD // num_heads
+
+    def heads(x: torch.Tensor) -> torch.Tensor:
+        return x.unflatten(-1, (num_heads, Dh)).transpose(1, 2)
+
+    out = torch.empty((B, Lq, HD), dtype=q.dtype, device=q.device)
+    _launch_bhld(heads(q), heads(k), heads(v), heads(out), kv_mask, causal,
+                 bias, scale, None)
+    return out
+
+
+def _launch_bhld(q, k, v, out, kv_mask, causal, bias, scale, window) -> None:
+    """Check [B, H, L, Dh] views q, k, v (K/V heads dividing H) and ``out``,
+    and launch flash_blhd.cu into ``out``."""
+    B, H, Lq, Dh = q.shape
+    KV, Lk = k.shape[1], k.shape[2]
+    if Dh % 16 or Dh > 128:
+        raise ValueError(f"flash kernel needs Dh % 16 == 0 and Dh <= 128, got {Dh}")
+    if KV == 0 or H % KV or k.shape != (B, KV, Lk, Dh) or v.shape != k.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match (K/V heads must divide H)")
+    if window is not None and (not causal or window < 1):
+        raise ValueError(f"window {window} needs causal attention and window >= 1")
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
         if x.device != q.device or x.dtype != torch.bfloat16:
             raise ValueError(f"{name}: flash kernel takes bf16 on {q.device}, "
                              f"got {x.dtype} on {x.device}")
@@ -140,29 +171,26 @@ def _launch(q, k, v, num_heads, kv_mask, causal, bias, scale) -> torch.Tensor:
     if bias is not None:
         if bias.shape[0] != 1:
             raise ValueError("flash path requires batch-invariant bias")
-        if (bias.shape != (1, num_heads, Lq, Lk) or bias.dtype != q.dtype
+        if (bias.shape != (1, H, Lq, Lk) or bias.dtype != q.dtype
                 or bias.device != q.device or not bias.is_contiguous()):
             raise ValueError(f"bias must be a contiguous {q.dtype} "
-                             f"[1, {num_heads}, {Lq}, {Lk}] tensor on q's device")
-    out = torch.empty((B, Lq, HD), dtype=q.dtype, device=q.device)
+                             f"[1, {H}, {Lq}, {Lk}] tensor on q's device")
     if out.numel() == 0:
-        return out
+        return
+    strides = _STRIDES(*(s for x in (q, k, v, out) for s in x.stride()[:3]))
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_blhd_bf16(
+        rc = lib.flash_attn_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if kv_mask is None else kv_mask.data_ptr(),
             None if bias is None else bias.data_ptr(),
             out.data_ptr(),
-            B, num_heads, Lq, Lk, Dh,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            float(scale), int(causal), stream,
+            B, H, Lq, Lk, Dh, H // KV, strides,
+            float(scale), int(causal), int(window or 0), stream,
         )
     if rc != 0:
-        raise RuntimeError(f"flash_blhd kernel launch failed: CUDA error {rc}")
-    return out
+        raise RuntimeError(f"flash kernel launch failed: CUDA error {rc}")
 
 
 def _split_packed(qkv: torch.Tensor):
@@ -218,3 +246,81 @@ def flash_mha_packed(
 
 
 flash_mha_packed.launches = 0
+
+
+def flash_mha_plain(
+    q: torch.Tensor,  # [B, H, Lq, Dh]
+    k: torch.Tensor,  # [B, KV, Lk, Dh], KV | H
+    v: torch.Tensor,
+    kv_mask: Optional[torch.Tensor] = None,  # [B, Lk] {0,1}
+    causal: bool = False,
+    bias: Optional[torch.Tensor] = None,  # [1, H, Lq, Lk]
+    scale: float = 1.0,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """The kernel's function on [B, H, L, Dh] in plain PyTorch, in one
+    softmax pass: K/V head h // G for query head h, the key penalty added,
+    causal and window positions set to -1e30, and the TPU kernel's floors,
+    so fully masked rows come out as zeros."""
+    if bias is not None and bias.shape[0] != 1:
+        raise ValueError("flash path requires batch-invariant bias")
+    if window is not None and not causal:
+        raise ValueError("window requires causal attention")
+    Lq, Lk = q.shape[2], k.shape[2]
+    G = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf)
+    if scale != 1.0:
+        s = s * scale
+    if bias is not None:
+        s = s + bias.float()
+    if kv_mask is not None:
+        s = s + ((1.0 - kv_mask.float()) * NEG_INF)[:, None, None, :]
+    if causal:
+        rel = (torch.arange(Lq, device=q.device)[:, None] + (Lk - Lq)
+               - torch.arange(Lk, device=q.device)[None, :])
+        vis = rel >= 0
+        if window is not None:
+            vis = vis & (rel < window)
+        s = s.masked_fill(~vis, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True).clamp_min(M_FLOOR)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vf)
+    return (out / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def flash_mha(
+    q: torch.Tensor,  # [B, H, Lq, Dh]
+    k: torch.Tensor,  # [B, KV, Lk, Dh], KV | H
+    v: torch.Tensor,
+    kv_mask: Optional[torch.Tensor] = None,  # [B, Lk] int32 {0,1}
+    causal: bool = False,
+    bias: Optional[torch.Tensor] = None,  # [1, H, Lq, Lk], q's dtype
+    scale: float = 1.0,
+    window: Optional[int] = None,  # causal sliding window, index space
+) -> torch.Tensor:
+    """GQA-native flash attention on [B, H, L, Dh]; returns [B, H, Lq, Dh].
+
+    The causal diagonal sits at offset Lk - Lq: with keys ``[prefix |
+    block]`` query row i sees every prefix key and block keys up to i.
+    CPU tensors take :func:`flash_mha_plain`. CUDA tensors launch the
+    kernel on the current stream, without synchronising, and add one to
+    ``flash_mha.launches``; the output is a [B, H, Lq, Dh] view of a
+    ``[B, Lq, H, Dh]`` buffer, so merging its heads back into ``[B, Lq,
+    H*Dh]`` is free. What the kernel does not take raises, as for
+    :func:`flash_mha_blhd`, and so does a window without ``causal``."""
+    if q.device.type == "cpu":
+        return flash_mha_plain(q, k, v, kv_mask=kv_mask, causal=causal,
+                               bias=bias, scale=scale, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_mha: no kernel for device {q.device}")
+    B, H, Lq, Dh = q.shape
+    out = torch.empty((B, Lq, H, Dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    _launch_bhld(q, k, v, out, kv_mask, causal, bias, scale, window)
+    flash_mha.launches += 1
+    return out
+
+
+flash_mha.launches = 0

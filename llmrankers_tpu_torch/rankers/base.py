@@ -1,18 +1,18 @@
 """Shared ranker machinery: counterpart of ``llmrankers_tpu/rankers/base.py``.
 
 The comparator plumbing is the JAX package's, on the port's engine: every
-query's sort coroutine runs under one reused ``WaveRunner``, so comparisons
-from all queries share device batches.
+query's sort coroutine runs under one ``WaveRunner`` (the port's copy of
+``algos/scheduler.py``), so comparisons from all queries share device
+batches.
 """
 from __future__ import annotations
 
 import copy
 from typing import Any, Callable, List, Optional, Sequence
 
-from llmrankers_tpu.algos.scheduler import WaveRunner
-from llmrankers_tpu.types import LlmRanker, RerankStats, SearchResult
-
+from ..algos.scheduler import WaveRunner
 from ..engine.engine import ScoringEngine
+from ..types import LlmRanker, RerankStats, SearchResult
 
 
 class EngineRanker(LlmRanker):

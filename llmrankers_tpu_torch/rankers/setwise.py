@@ -1,10 +1,12 @@
 """Setwise reranker: counterpart of ``llmrankers_tpu/rankers/setwise.py``.
 
-The sorts are the reused ``llmrankers_tpu.algos.setwise_sort`` coroutines;
+The sorts are the ``algos/setwise_sort.py`` coroutines (the port's copy);
 every ``compare`` is a request into the wave batcher. Likelihood scoring (one
-forward, label-token logits) runs on the port's engine. Generation scoring
-raises ``NotImplementedError``: it comes with the engine's ``generate``
-(ROADMAP A6).
+forward, label-token logits) runs on the port's engine, for T5 (the forced
+``"<pad> Passage"`` decoder prefix) and for decoder-only models (the prompt
+in the tokenizer's chat template, followed by ``" Passage:"``). Generation
+scoring raises ``NotImplementedError``: it comes with the engine's
+``generate`` (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -13,10 +15,9 @@ from typing import List, Optional
 
 import numpy as np
 
-from llmrankers_tpu.algos import setwise_sort
-from llmrankers_tpu.types import SearchResult, toppassage_results
-
+from ..algos import setwise_sort
 from ..engine.engine import ScoringEngine
+from ..types import SearchResult, toppassage_results
 from . import prompts
 from .base import EngineRanker
 
@@ -59,12 +60,14 @@ class SetwiseLlmRanker(EngineRanker):
         self.k = k
         self.scoring = scoring
         self.method = method
-        if engine.kind != "t5":
-            raise NotImplementedError("decoder-only setwise is not ported yet (ROADMAP A7)")
-        # "<pad> Passage" forced decoder prefix (reference setwise.py:51-54).
         tk = engine.tokenizer
-        self.decoder_prefix = tk.encode("<pad> Passage", add_special_tokens=False)
-        self.label_ids = self._label_token_ids(self.CHARACTERS, "<pad> Passage")
+        if engine.kind == "t5":
+            # "<pad> Passage" forced decoder prefix (reference setwise.py:51-54).
+            self.decoder_prefix = tk.encode("<pad> Passage", add_special_tokens=False)
+            self.label_ids = self._label_token_ids(self.CHARACTERS, "<pad> Passage")
+        else:
+            self.decoder_prefix = []
+            self.label_ids = self._label_token_ids(self.CHARACTERS, "Passage")
 
     async def _rerank_one(self, runner, qidx, query, ranking):
         original = list(ranking)
@@ -93,11 +96,15 @@ class SetwiseLlmRanker(EngineRanker):
     # Batch executor
     # ------------------------------------------------------------------
     def _compare_batch(self, requests: List[_SetRequest]) -> List[int]:
+        tk = self.engine.tokenizer
         rows, max_docs = [], 0
         for r in requests:
             self._query_stats[r.qidx].comparisons += 1
-            ids = self._encode_prompt(
-                prompts.setwise_prompt(r.query, [d.text for d in r.docs]))
+            text = prompts.setwise_prompt(r.query, [d.text for d in r.docs])
+            if self.engine.kind == "decoder":
+                text = tk.apply_chat_template(
+                    [{"role": "user", "content": text}]) + " Passage:"
+            ids = self._encode_prompt(text)
             self._query_stats[r.qidx].prompt_tokens += len(ids) + len(self.decoder_prefix)
             rows.append(ids)
             max_docs = max(max_docs, len(r.docs))

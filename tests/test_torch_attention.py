@@ -1,11 +1,12 @@
 """Port parity: attention ops of ``llmrankers_tpu_torch.ops`` against JAX.
 
 The same numpy inputs go through the JAX op and the port's op in fp32. The
-port's flash wrapper takes its plain version on CPU tensors and is held to
-the JAX Pallas kernel ``flash_mha_blhd`` run in interpret mode (as
-``tests/test_flash.py`` runs it), on every row including an all-padding row,
-which both must return as zeros. The port's plain ``mha_flat`` is held to the
-JAX XLA ``mha_flat``. Tolerance: 1e-5 absolute in fp32 (the two frameworks
+port's flash wrappers take their plain versions on CPU tensors and are held
+to the JAX Pallas kernels ``flash_mha_blhd`` and ``flash_mha`` run in
+interpret mode (as ``tests/test_flash.py`` runs them), on every row including
+all-padding rows, which both must return as zeros. The port's plain
+``mha_flat`` and ``mha`` (GQA, windows and dense masks included) are held to
+the JAX XLA versions. Tolerance: 1e-5 absolute in fp32 (the two frameworks
 sum in other orders; the values are O(1)).
 """
 import functools
@@ -29,6 +30,13 @@ def _interpret_blhd(monkeypatch):
     orig = jflash.pl.pallas_call
     monkeypatch.setattr(jflash.pl, "pallas_call", functools.partial(orig, interpret=True))
     monkeypatch.setattr(jflash, "flash_mha_blhd", jflash.flash_mha_blhd.__wrapped__)
+
+
+@pytest.fixture
+def _interpret_bhld(monkeypatch):
+    orig = jflash.pl.pallas_call
+    monkeypatch.setattr(jflash.pl, "pallas_call", functools.partial(orig, interpret=True))
+    monkeypatch.setattr(jflash, "flash_mha", jflash.flash_mha.__wrapped__)
 
 
 def _inputs(case, seed=0):
@@ -141,3 +149,125 @@ def test_rms_norm_and_gelu_new_match_jax():
     np.testing.assert_allclose(
         tattn.gelu_new(torch.from_numpy(x)).numpy(),
         np.asarray(jattn.gelu_new(jnp.asarray(x))), rtol=1e-6, atol=1e-6)
+
+
+# -- flash_mha (B5): [B, H, L, Dh], GQA, causal at Lk - Lq, window ---------
+BHLD_CASES = {
+    # name: (H, KV, Lq, Lk, layout, causal, window, bias)
+    "g1_bidir_right_pad": (4, 4, 96, 96, "right", False, None, True),
+    "g2_causal_left_pad": (4, 2, 96, 96, "left", True, None, False),
+    "g8_causal_left_pad": (8, 1, 80, 80, "left", True, None, False),
+    "g2_shared_prefix_holes": (4, 2, 48, 64 + 48, "holes", True, None, False),
+    "g8_shared_prefix_holes_bias": (8, 1, 40, 72 + 40, "holes", True, None, True),
+    "g2_window_left_pad": (4, 2, 160, 160, "left", True, 64, False),
+    "g1_causal_lk_gt_lq": (2, 2, 50, 130, "none", True, None, True),
+}
+
+
+def _bhld_inputs(H, KV, Lq, Lk, layout, bias, seed=0):
+    """q [B, H, Lq, Dh], k/v [B, KV, Lk, Dh] and a key mask: left padding
+    (a decoder prompt), right padding, or a right-padded prefix then a
+    right-padded suffix (the shared path's holes). The last row is all
+    padding, so every one of its queries sees no key."""
+    rng = np.random.RandomState(seed)
+    B, Dh = 3, 32
+    q = rng.randn(B, H, Lq, Dh).astype(np.float32)
+    k = rng.randn(B, KV, Lk, Dh).astype(np.float32)
+    v = rng.randn(B, KV, Lk, Dh).astype(np.float32)
+    m = np.ones((B, Lk), np.int32)
+    if layout == "left":
+        m[0, :11] = 0
+        m[1, :Lk - 5] = 0
+    elif layout == "right":
+        m[0, -17:] = 0
+        m[1, 3:] = 0
+    elif layout == "holes":
+        Lp = Lk - Lq
+        m[0, Lp - 20:Lp] = 0  # prefix padding, a hole before the suffix
+        m[0, -7:] = 0
+        m[1, 5:Lp] = 0
+        m[1, Lp + 9:] = 0
+    m[2] = 0
+    kw = {"kv_mask": m}
+    if bias:
+        kw["bias"] = rng.randn(1, H, Lq, Lk).astype(np.float32)
+    return q, k, v, kw
+
+
+@pytest.mark.parametrize("case", list(BHLD_CASES))
+def test_flash_mha_plain_matches_pallas_interpret(case, _interpret_bhld):
+    H, KV, Lq, Lk, layout, causal, window, bias = BHLD_CASES[case]
+    q, k, v, kw = _bhld_inputs(H, KV, Lq, Lk, layout, bias)
+    scale = q.shape[-1] ** -0.5
+    want = np.asarray(jflash.flash_mha(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        scale=scale, window=window, **_jax_kw(kw)))
+    before = tflash.flash_mha.launches
+    got = tflash.flash_mha(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), causal=causal, scale=scale,
+                           window=window, **_torch_kw(kw))
+    assert tflash.flash_mha.launches == before  # CPU: plain path, no launch
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+    assert not got[2].any() and not want[2].any()  # the all-padding row
+
+
+def test_flash_mha_gqa_reads_head_h_over_g():
+    """Control: with G = 2 the plain version must read K/V head h // G; the
+    h % KV mapping gives another result (a G = 1 test could not tell)."""
+    q, k, v, kw = _bhld_inputs(4, 2, 32, 32, "none", False)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = tflash.flash_mha_plain(tq, tk, tv, causal=True)
+    want = tflash.flash_mha_plain(tq, tk.repeat_interleave(2, 1),
+                                  tv.repeat_interleave(2, 1), causal=True)
+    wrong = tflash.flash_mha_plain(tq, tk.repeat(1, 2, 1, 1), tv.repeat(1, 2, 1, 1),
+                                   causal=True)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=0)
+    assert (got - wrong).abs().max() > 0.1
+
+
+@pytest.mark.parametrize("case", list(BHLD_CASES))
+def test_mha_matches_xla(case):
+    """The port's plain mha (GQA repeat, where-masking, window) against the
+    JAX XLA path, and its flash dispatch on the rows with a valid key."""
+    H, KV, Lq, Lk, layout, causal, window, bias = BHLD_CASES[case]
+    q, k, v, kw = _bhld_inputs(H, KV, Lq, Lk, layout, bias, seed=1)
+    want = np.asarray(jattn.mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                causal=causal, window=window, **_jax_kw(kw)))
+    tkw = dict(causal=causal, window=window, **_torch_kw(kw))
+    got = tattn.mha(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), **tkw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+    flashed = tattn.mha(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                        use_flash=True, **tkw)
+    # Flash differs only on query rows that see no valid key (zeros
+    # instead of the mean of v).
+    rel = np.arange(Lq)[:, None] + (Lk - Lq) - np.arange(Lk)[None, :]
+    vis = (rel >= 0) & (rel < (window or Lk + 1)) if causal else np.ones((Lq, Lk), bool)
+    sees = (vis[None] & kw["kv_mask"].astype(bool)[:, None, :]).any(-1)  # [B, Lq]
+    np.testing.assert_allclose(flashed.numpy().transpose(0, 2, 1, 3)[sees],
+                               want.transpose(0, 2, 1, 3)[sees], rtol=0, atol=ATOL)
+
+
+def test_mha_dense_mask_matches_xla():
+    """A dense [B, 1, Lq, Lk] mask (the windowed shared-prefix path) takes
+    the plain path even with flash on, as in JAX."""
+    rng = np.random.RandomState(5)
+    q = rng.randn(2, 4, 130, 16).astype(np.float32)
+    k = rng.randn(2, 2, 150, 16).astype(np.float32)
+    v = rng.randn(2, 2, 150, 16).astype(np.float32)
+    mask = rng.rand(2, 1, 130, 150) > 0.4
+    want = np.asarray(jattn.mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                mask=jnp.asarray(mask), use_flash=False))
+    before = tflash.flash_mha.launches
+    got = tattn.mha(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                    mask=torch.from_numpy(mask), use_flash=True)
+    assert tflash.flash_mha.launches == before
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+
+
+def test_flash_mha_rejects_window_without_causal():
+    q = torch.zeros(1, 2, 4, 16)
+    with pytest.raises(ValueError, match="window requires causal"):
+        tflash.flash_mha(q, q, q, window=2)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tflash.flash_mha(q.to("meta"), q.to("meta"), q.to("meta"))

@@ -67,3 +67,16 @@ def test_load_all_builds_each_source_and_raises(fresh_build, monkeypatch):
     assert len(calls) == 2
     assert {c.split()[-1].rsplit("/", 1)[1] for c in calls} == {
         "flash_blhd.cu", "int8_fusedq.cu"}
+
+
+def test_flash_source_serves_the_three_layouts():
+    """One hand-written flash source serves B1, B2 and B5: one C entry with
+    batch, head and row strides per tensor, a GQA group and a window."""
+    with open(os.path.join(_build.CSRC_DIR, "flash_blhd.cu")) as f:
+        src = f.read()
+    assert 'extern "C" int flash_attn_bf16(' in src
+    for field in ("q_hs", "k_hs", "v_hs", "o_hs", "int group;", "int window;"):
+        assert field in src
+    assert "h / p.group" in src
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "cublas" not in src.lower() and "cudnn" not in src.lower()

@@ -5,6 +5,8 @@ Both engines get the same parameter tree (JAX init, loaded into the port with
 exactly (the same padded batches and chunk boundaries) and ``score_labels``
 within 2e-4 in fp32.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -17,11 +19,19 @@ from llmrankers_tpu.models import t5 as jt5
 from llmrankers_tpu.models.config import T5Config
 from llmrankers_tpu_torch.engine import engine as teng
 from llmrankers_tpu_torch.engine.tokenizer import ByteTokenizer
+from llmrankers_tpu_torch.models import decoder as tdec
 from llmrankers_tpu_torch.models import t5 as tt5
+from llmrankers_tpu_torch.models.config import DecoderConfig as TorchDecoderConfig
+from llmrankers_tpu_torch.models.config import T5Config as TorchT5Config
 
 TOL = 2e-4
 LADDERS = dict(len_buckets=(64, 128, 256), batch_buckets=(4, 8, 16),
                max_batch_tokens=1024)
+
+
+def _torch_cfg(cfg):
+    """The port's own T5Config with the fields of a JAX one."""
+    return TorchT5Config(**dataclasses.asdict(cfg))
 
 
 @pytest.fixture(autouse=True)
@@ -36,7 +46,8 @@ def engines():
     tree = jax.tree.map(np.asarray, jt5.init_params(cfg, jax.random.PRNGKey(0)))
     jeng = JaxEngine("t5", cfg, jax.tree.map(jax.numpy.asarray, tree),
                      JaxByteTokenizer(cfg.vocab_size), **LADDERS)
-    teng_ = teng.ScoringEngine("t5", cfg, tt5.params_from_jax(tree, cfg),
+    tcfg = _torch_cfg(cfg)
+    teng_ = teng.ScoringEngine("t5", tcfg, tt5.params_from_jax(tree, tcfg),
                                ByteTokenizer(cfg.vocab_size), **LADDERS)
     return jeng, teng_
 
@@ -89,5 +100,10 @@ def test_unported_paths_raise(engines):
         teng_.sequence_nll([[5, 6]], [[7]])
     with pytest.raises(NotImplementedError, match="A10"):
         teng_.score_labels([[5, 6]], [67], adapter="lora")
-    with pytest.raises(NotImplementedError, match="A7"):
-        teng.ScoringEngine("decoder", teng_.cfg, teng_.model, teng_.tokenizer)
+    # The decoder kind is ported; its int8/int4 weights are not.
+    dcfg = TorchDecoderConfig.tiny()
+    dec = tdec.init_params(dcfg, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="A9"):
+        teng.ScoringEngine("decoder", dcfg, dec, teng_.tokenizer, quantize="int8")
+    with pytest.raises(TypeError, match="T5Config"):
+        teng.ScoringEngine("t5", dcfg, dec, teng_.tokenizer)

@@ -41,6 +41,7 @@ from llmrankers_tpu_torch.engine.engine import ScoringEngine
 from llmrankers_tpu_torch.engine.tokenizer import ByteTokenizer
 from llmrankers_tpu_torch.models import quant as tquant
 from llmrankers_tpu_torch.models import t5 as tt5
+from llmrankers_tpu_torch.models.config import T5Config as TorchT5Config
 from llmrankers_tpu_torch.rankers.setwise import SetwiseLlmRanker
 
 KERNEL_TOL = 0.05  # int8 forward, kernel path: cascading round-half flips
@@ -49,6 +50,11 @@ DEQUANT_TOL = 2e-4  # int8 forward, dequant path: fp32 rounding only
 
 CFG128 = T5Config(vocab_size=512, d_model=128, d_kv=32, d_ff=256,
                   num_layers=2, num_decoder_layers=2, num_heads=4)
+
+
+def _torch_cfg(cfg):
+    """The port's own T5Config with the fields of a JAX one."""
+    return TorchT5Config(**dataclasses.asdict(cfg))
 
 
 @pytest.fixture(autouse=True)
@@ -72,7 +78,7 @@ def test_quantize_t5_params_matches_jax(variant):
     tree = _tree(cfg, dtype=jdt)
     want = jax.tree.map(np.asarray, jquant.quantize_t5_params(
         jax.tree.map(jnp.asarray, tree), pack=True))
-    model = tt5.params_from_jax(tree, cfg, dtype=tdt)
+    model = tt5.params_from_jax(tree, _torch_cfg(cfg), dtype=tdt)
     got = tquant.quantize_t5_params(model, pack=True)
     assert got.quantized and not model.quantized
     for block in ("encoder", "decoder"):
@@ -96,13 +102,13 @@ def test_quantize_t5_params_matches_jax(variant):
         assert "qkv" in got.encoder.layers[0] and "ckv" in got.decoder.layers[0]
         assert got.encoder.layers[0]["wi_g"].shape == (128, 512)  # [K, N] layout
     # the JAX tree itself loads into the same module
-    loaded = tt5.params_from_jax(want, cfg, dtype=tdt)
+    loaded = tt5.params_from_jax(want, _torch_cfg(cfg), dtype=tdt)
     for a, b in zip(loaded.state_dict().values(), got.state_dict().values()):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def test_pack_false_is_not_ported():
-    model = tt5.params_from_jax(_tree(CFG128), CFG128)
+    model = tt5.params_from_jax(_tree(CFG128), _torch_cfg(CFG128))
     with pytest.raises(NotImplementedError, match="A13"):
         tquant.quantize_t5_params(model, pack=False)
 
@@ -123,7 +129,7 @@ def test_int8_forward_matches_jax(kernel):
     ids, mask, dec = (a if kernel else a[:32] for a in _batch(cfg))
     want = np.asarray(jt5.forward(qtree, dataclasses.replace(cfg, int8_kernel=kernel),
                                   jnp.asarray(ids), jnp.asarray(mask), jnp.asarray(dec)))
-    model = tquant.quantize_t5_params(tt5.params_from_jax(tree, cfg))
+    model = tquant.quantize_t5_params(tt5.params_from_jax(tree, _torch_cfg(cfg)))
     with torch.inference_mode():
         got = model(*map(torch.from_numpy, (ids, mask, dec))).numpy()
     assert (got[:, -1].argmax(-1) == want[:, -1].argmax(-1)).all()
@@ -143,7 +149,8 @@ def test_int8_forward_routes_large_m_to_the_kernels(monkeypatch):
         monkeypatch.setattr(mod, name, lambda *a, _f=fn, _n=name, **k: (
             calls.append((_n, tuple(a[0].shape), tuple(a[1].shape)
                           if _n != "flash_mha_packed" else ())), _f(*a, **k))[1])
-    model = tquant.quantize_t5_params(tt5.params_from_jax(_tree(CFG128), CFG128))
+    model = tquant.quantize_t5_params(
+        tt5.params_from_jax(_tree(CFG128), _torch_cfg(CFG128)))
     ids, mask, dec = _batch(CFG128)
     with torch.inference_mode():
         model(*map(torch.from_numpy, (ids, mask, dec)))
@@ -180,7 +187,8 @@ def test_setwise_int8_orders_match_jax(monkeypatch):
     jeng = JaxEngine("t5", cfg, jax.tree.map(jnp.asarray, tree),
                      JaxByteTokenizer(cfg.vocab_size), quantize="int8", **LADDERS)
     assert jeng.cfg.int8_kernel and "qkv" in jeng.params["encoder"]["layers"]
-    teng = ScoringEngine("t5", cfg, tt5.params_from_jax(tree, cfg),
+    tcfg = _torch_cfg(cfg)
+    teng = ScoringEngine("t5", tcfg, tt5.params_from_jax(tree, tcfg),
                          ByteTokenizer(cfg.vocab_size), quantize="int8", **LADDERS)
     assert teng.model.quantized
     kw = dict(num_child=2, k=4, scoring="likelihood", method="heapsort")
@@ -200,12 +208,12 @@ def test_setwise_int8_orders_match_jax(monkeypatch):
 
 def test_engine_quantize_errors():
     cfg = T5Config.tiny()
-    model = tt5.params_from_jax(_tree(cfg), cfg)
+    model = tt5.params_from_jax(_tree(cfg), _torch_cfg(cfg))
     tok = ByteTokenizer(cfg.vocab_size)
     with pytest.raises(ValueError, match="int4.*decoder models"):
-        ScoringEngine("t5", cfg, model, tok, quantize="int4")
+        ScoringEngine("t5", _torch_cfg(cfg), model, tok, quantize="int4")
     with pytest.raises(ValueError, match="unknown quantize mode"):
-        ScoringEngine("t5", cfg, model, tok, quantize="fp8")
+        ScoringEngine("t5", _torch_cfg(cfg), model, tok, quantize="fp8")
 
 
 def test_decision_parity_battery():
@@ -214,7 +222,7 @@ def test_decision_parity_battery():
     tok = ByteTokenizer(CFG128.vocab_size)
     rows = parity.battery_rows(tok, 16)
     assert len(rows) == 16 and all(512 < len(r) <= 640 for r in rows)
-    model = tt5.params_from_jax(_tree(CFG128), CFG128)
+    model = tt5.params_from_jax(_tree(CFG128), _torch_cfg(CFG128))
     res = parity.t5_int8_decision_parity(model, n_prompts=16)
     assert res["prompts"] == 16
     assert 0.0 <= res["winner_agreement"] <= 1.0

@@ -1,10 +1,14 @@
-"""Port parity, end to end: setwise likelihood reranking on t5-tiny.
+"""Port parity, end to end: setwise likelihood reranking on t5-tiny and on
+the tiny decoder-only presets.
 
 The JAX ranker on the JAX engine and the port's ranker on the port's engine,
 with the same weights, must return the same final orders, docid for docid.
 Then the port's CLI runs on a synthetic TREC run and docstore: with the byte
-tokenizer, with ``--quantize int8``, and with a local HF tokenizer directory.
+tokenizer, with ``--quantize int8``, and with a local HF tokenizer directory;
+on ``random:dec-tiny`` and ``random:mistral-tiny`` its output file must equal
+the JAX CLI's, given the JAX CLI's random weights.
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -16,18 +20,28 @@ import jax
 from llmrankers_tpu.engine.engine import ScoringEngine as JaxEngine
 from llmrankers_tpu.engine.tokenizer import ByteTokenizer as JaxByteTokenizer
 from llmrankers_tpu.engine.tokenizer import HFTokenizer as JaxHFTokenizer
+from llmrankers_tpu.models import decoder as jdec
 from llmrankers_tpu.models import t5 as jt5
+from llmrankers_tpu.models.config import DecoderConfig as JaxDecoderConfig
 from llmrankers_tpu.models.config import T5Config
 from llmrankers_tpu.rankers import SetwiseLlmRanker as JaxSetwise
 from llmrankers_tpu.types import SearchResult
 from llmrankers_tpu_torch.cli import run as trun
 from llmrankers_tpu_torch.engine.engine import ScoringEngine
 from llmrankers_tpu_torch.engine.tokenizer import ByteTokenizer, HFTokenizer
+from llmrankers_tpu_torch.models import decoder as tdec
 from llmrankers_tpu_torch.models import t5 as tt5
+from llmrankers_tpu_torch.models.config import DecoderConfig as TorchDecoderConfig
+from llmrankers_tpu_torch.models.config import T5Config as TorchT5Config
 from llmrankers_tpu_torch.rankers.prompts import CHARACTERS
 from llmrankers_tpu_torch.rankers.setwise import SetwiseLlmRanker
 
 LADDERS = dict(len_buckets=(128, 256, 512), batch_buckets=(4, 16))
+
+
+def _torch_cfg(cfg):
+    """The port's own T5Config with the fields of a JAX one."""
+    return TorchT5Config(**dataclasses.asdict(cfg))
 
 
 @pytest.fixture(autouse=True)
@@ -42,7 +56,8 @@ def engines():
     tree = jax.tree.map(np.asarray, jt5.init_params(cfg, jax.random.PRNGKey(3)))
     jeng = JaxEngine("t5", cfg, jax.tree.map(jax.numpy.asarray, tree),
                      JaxByteTokenizer(cfg.vocab_size), **LADDERS)
-    teng = ScoringEngine("t5", cfg, tt5.params_from_jax(tree, cfg),
+    tcfg = _torch_cfg(cfg)
+    teng = ScoringEngine("t5", tcfg, tt5.params_from_jax(tree, tcfg),
                          ByteTokenizer(cfg.vocab_size), **LADDERS)
     return jeng, teng
 
@@ -102,8 +117,8 @@ def _write_inputs(tmp_path, n_q=2, n_docs=10):
         for i in range(n_q) for d in range(n_docs)))
 
 
-def _argv(tmp_path, *extra):
-    return ["run", "--model_name_or_path", "random:t5-tiny",
+def _argv(tmp_path, *extra, model="random:t5-tiny"):
+    return ["run", "--model_name_or_path", model,
             "--run_path", str(tmp_path / "run.txt"),
             "--query_file", str(tmp_path / "q.tsv"),
             "--corpus_file", str(tmp_path / "c.jsonl"),
@@ -212,3 +227,79 @@ def test_cli_reranks_with_hf_tokenizer(tmp_path):
                                  "--tokenizer_name_or_path", big))
     with pytest.raises(ValueError, match="vocabulary"):
         trun.make_engine(args.run)
+
+
+# ---------------------------------------------------------------------------
+# Decoder-only setwise
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def dec_engines():
+    jcfg, tcfg = JaxDecoderConfig.tiny(), TorchDecoderConfig.tiny()
+    tree = jax.tree.map(np.asarray, jdec.init_params(jcfg, jax.random.PRNGKey(5)))
+    jeng = JaxEngine("decoder", jcfg, jax.tree.map(jax.numpy.asarray, tree),
+                     JaxByteTokenizer(jcfg.vocab_size), **LADDERS)
+    teng = ScoringEngine("decoder", tcfg, tdec.params_from_jax(tree, tcfg),
+                         ByteTokenizer(tcfg.vocab_size), **LADDERS)
+    return jeng, teng
+
+
+@pytest.mark.parametrize("method,num_child,k", [("heapsort", 2, 10),
+                                                ("heapsort", 3, 4),
+                                                ("insertion", 2, 5)])
+def test_decoder_setwise_orders_match_jax(dec_engines, method, num_child, k):
+    jeng, teng = dec_engines
+    queries, rankings = _queries()
+    kw = dict(num_child=num_child, k=k, scoring="likelihood", method=method)
+    jr, tr = JaxSetwise(jeng, **kw), SetwiseLlmRanker(teng, **kw)
+    assert tr.decoder_prefix == jr.decoder_prefix == []
+    assert tr.label_ids == jr.label_ids
+    want = jr.rerank_many(queries, rankings)
+    got = tr.rerank_many(queries, rankings)
+    assert [[d.docid for d in r] for r in got] == [[d.docid for d in r] for r in want]
+    assert tr.stats.comparisons == jr.stats.comparisons > 0
+    assert tr.stats.prompt_tokens == jr.stats.prompt_tokens
+    assert tr.wave_stats == jr.wave_stats
+    assert teng.pkv_stats == jeng.pkv_stats
+
+
+@pytest.mark.parametrize("preset", ["dec-tiny", "mistral-tiny"])
+def test_cli_decoder_orders_match_jax(tmp_path, monkeypatch, preset):
+    """The port's CLI against the JAX CLI on the same argv. The JAX CLI
+    draws its random weights with jax.random, so the port's init is pointed
+    at the same JAX draw, carried across with params_from_jax."""
+    from llmrankers_tpu.cli import run as jrun
+
+    _write_inputs(tmp_path, n_q=2, n_docs=12)
+    argv = _argv(tmp_path, "--device", "cpu", "--dtype", "float32", model=f"random:{preset}")
+
+    def jax_init(cfg, gen, dtype, device):
+        jcfg = JaxDecoderConfig(**dataclasses.asdict(cfg))
+        tree = jax.tree.map(np.asarray, jdec.init_params(jcfg, jax.random.PRNGKey(929)))
+        return tdec.params_from_jax(tree, cfg, dtype=dtype, device=device)
+
+    monkeypatch.setattr(tdec, "init_params", jax_init)
+    jrun.main(jrun.parse_args(argv))
+    want = (tmp_path / "out.txt").read_text()
+    (tmp_path / "out.txt").unlink()
+    report = trun.main(trun.parse_args(argv))
+    got = (tmp_path / "out.txt").read_text()
+    assert len(got.splitlines()) == 24 and got == want
+    assert report.total.comparisons > 0
+
+
+def test_chat_templates_match_jax(tmp_path):
+    msgs = [{"role": "user", "content": "Given a query, which passage?"}]
+    for add in (True, False):
+        assert (ByteTokenizer(512).apply_chat_template(msgs, add)
+                == JaxByteTokenizer(512).apply_chat_template(msgs, add))
+    from llmrankers_tpu.engine.tokenizer import VICUNA_CHAT_TEMPLATE as JAX_VICUNA
+
+    from llmrankers_tpu_torch.engine.tokenizer import VICUNA_CHAT_TEMPLATE
+
+    assert VICUNA_CHAT_TEMPLATE == JAX_VICUNA
+    path = _hf_tokenizer_dir(tmp_path / "vicuna-7b-v1.5")
+    t, j = HFTokenizer(path), JaxHFTokenizer(path)
+    assert t.tk.chat_template == j.tk.chat_template == VICUNA_CHAT_TEMPLATE
+    msgs = [{"role": "system", "content": "Be brief."}] + msgs
+    for add in (True, False):
+        assert t.apply_chat_template(msgs, add) == j.apply_chat_template(msgs, add)

@@ -19,8 +19,14 @@ import jax.numpy as jnp
 from llmrankers_tpu.models import t5 as jt5
 from llmrankers_tpu.models.config import T5Config
 from llmrankers_tpu_torch.models import t5 as tt5
+from llmrankers_tpu_torch.models.config import T5Config as TorchT5Config
 
 TOL = 2e-4
+
+
+def _torch_cfg(cfg):
+    """The port's own T5Config with the fields of a JAX one."""
+    return TorchT5Config(**dataclasses.asdict(cfg))
 
 
 @pytest.fixture(autouse=True)
@@ -40,7 +46,7 @@ def _cfg(variant):
 def _models(variant):
     cfg = _cfg(variant)
     tree = jax.tree.map(np.asarray, jt5.init_params(cfg, jax.random.PRNGKey(0)))
-    return cfg, tree, tt5.params_from_jax(tree, cfg)
+    return cfg, tree, tt5.params_from_jax(tree, _torch_cfg(cfg))
 
 
 def _batch(cfg, seed=0):
@@ -95,7 +101,7 @@ def test_relative_position_bucket_matches_jax(bidirectional):
 def test_compute_bias_matches_jax():
     cfg, tree, model = _models("flan")
     want = jt5.compute_bias(jnp.asarray(tree["encoder"]["rel_bias"]), 9, 13, True, cfg)
-    got = tt5.compute_bias(model.encoder.rel_bias, 9, 13, True, cfg)
+    got = tt5.compute_bias(model.encoder.rel_bias, 9, 13, True, _torch_cfg(cfg))
     assert got.is_contiguous()
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -104,7 +110,7 @@ def test_params_from_jax_rejects_wrong_shapes():
     cfg, tree, _ = _models("flan")
     tree["encoder"]["layers"]["q"] = tree["encoder"]["layers"]["q"][:, :, :8]
     with pytest.raises(ValueError, match="encoder.q"):
-        tt5.params_from_jax(tree, cfg)
+        tt5.params_from_jax(tree, _torch_cfg(cfg))
 
 
 def test_init_params_layout_and_scales():
@@ -113,7 +119,7 @@ def test_init_params_layout_and_scales():
     cfg, tree, _ = _models("flan")
 
     def make(seed):
-        return tt5.init_params(cfg, torch.Generator().manual_seed(seed))
+        return tt5.init_params(_torch_cfg(cfg), torch.Generator().manual_seed(seed))
 
     a, b, c = make(0), make(0), make(1)
     lp = a.encoder.layers[0]
