@@ -6,12 +6,14 @@ Run from the root of a checkout:
     python3 chip_profile.py                      # bf16 flan-t5-large
     python3 chip_profile.py --quantize int8      # W8A8 int8 flan-t5-xl
     python3 chip_profile.py --model qwen2.5-3b   # bf16 Qwen2.5-3B, decoder-only
+    python3 chip_profile.py --model qwen2.5-3b --quantize int8   # or int4
 
 It runs ``chip_smoke.py``'s end-to-end configuration (random-init weights at
 full width, 4 synthetic queries x 100 passages of 128 tokens, setwise
 heapsort with likelihood scoring, num_child 2, k 10; flan-t5-large in bf16,
-flan-t5-xl in int8 with ``--quantize int8``, or Qwen2.5-3B in bf16 with the
-shared-prefix path and the cross-wave prefix-KV cache) through the CLI's
+flan-t5-xl in int8 with ``--quantize int8``, or Qwen2.5-3B with the
+shared-prefix path and the cross-wave prefix-KV cache, in bf16 or with
+``--quantize int8`` or ``int4`` on the engine) through the CLI's
 ``make_engine`` (Qwen2.5-3B: a random-init engine built here)/
 ``make_ranker``/``load_inputs`` and the ranker's ``rerank_many``, all in one
 process:
@@ -19,12 +21,19 @@ process:
 1. one warm-up rerank, then four timed reranks in the order plain, kernel,
    kernel, plain: rerank wall on the host clock, docs/s. "Plain" is plain
    attention in bf16, and every kernel site on the kernel's plain version
-   in int8. The decoder's prefix-KV cache starts empty in every rerank;
+   when quantized (the quantized decoder: its GEMM sites and its attention).
+   The decoder's prefix-KV cache starts empty in every rerank;
 2. one more rerank with the kernels under ``torch.profiler``: device kernel
    time by kernel family, and the device's busy share in that same run
    (summed kernel time over the run's own wall; the profiler slows the host,
    so the unprofiled share is at least this);
-3. in bf16, the flash kernel's time at B 32, L 640 from CUDA events (T5:
+3. with ``--quantize`` on Qwen2.5-3B, the time of each matmul site alone
+   (wq/wo, wk/wv, w_gate/w_up, w_down on random weights, at M = 1024 and
+   M = 20480) as bf16 ``torch.matmul``, int8 W8A16 (the dequantized product
+   of the sites below the kernels' threshold), B3 and B7, in six rounds of
+   turns (median and range): what a choice of the int4 cut-off
+   ``INT4_MIN_SITE_PARAMS`` on this card rests on;
+4. in bf16, the flash kernel's time at B 32, L 640 from CUDA events (T5:
    B1 at H 16, Dh 64; Qwen2.5-3B: B5 at H 16, KV 2, Dh 128, causal, left
    padding), its achieved bf16 TFLOP/s over the work the mask leaves, and
    that as a share of the H100 SXM data sheet's dense bf16 peak of 989
@@ -37,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import time
 
@@ -48,11 +58,15 @@ from llmrankers_tpu_torch.engine.engine import ScoringEngine
 from llmrankers_tpu_torch.engine.tokenizer import ByteTokenizer
 from llmrankers_tpu_torch.models import decoder
 from llmrankers_tpu_torch.models.config import DecoderConfig, T5Config
+from llmrankers_tpu_torch.models.quant import is_quantized
+from llmrankers_tpu_torch.ops import int4_matmul, int8_matmul
 
 H100_BF16_PEAK_TFLOPS = 989.0  # NVIDIA H100 SXM data sheet, dense, 700 W
 FAMILIES = (  # first match wins, on the lower-cased kernel name
     ("flash", ("flash_blhd",)),
-    ("int8 gemm", ("int8_gemm",)),
+    ("int8 gated gemm (B4/B6)", ("int8_gemm_kernel<true>",)),
+    ("int8 gemm (B3)", ("int8_gemm",)),
+    ("w4a8 gemm (B7)", ("w4a8_gemm",)),
     ("int8 quantize", ("quantize_blocks",)),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90")),
     ("softmax", ("softmax",)),
@@ -70,8 +84,10 @@ def _family(name: str) -> str:
 
 
 def _use_kernels(model, on: bool) -> None:
-    if getattr(model, "quantized", False):
+    if getattr(model, "quantized", False):  # T5: GEMM and attention sites
         model.plain_kernels = not on
+    elif isinstance(model, decoder.Decoder) and is_quantized(model):
+        model.plain_kernels, model.use_flash = not on, on
     else:
         model.use_flash = on
 
@@ -103,14 +119,53 @@ def _device_times(prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
+# Qwen2.5-3B's matmul sites, (name, K, N); wk/wv and wq/wo share shapes.
+QWEN_SITES = (("wq/wo", 2048, 2048), ("wk/wv", 2048, 256),
+              ("w_gate/w_up", 2048, 11008), ("w_down", 11008, 2048))
+
+
+def site_times(ms=(1024, 20480), rounds=6):
+    """ms per call of each Qwen2.5-3B site by route: CUDA events, mean of 20
+    after warm-up, the routes timed in turns (forward, then backward,
+    ``rounds`` times): {"site M": {"bf16": [t, ...], "w8a16": [...], "b3":
+    [...], "b7": [...]}}, one mean per round. Each line printed gives a
+    route's median and its range over the rounds."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out = {}
+    for name, K, N in QWEN_SITES:
+        for M in ms:
+            x, w8, sw = smoke._int8_operands(gen, M, K, N)
+            wb = (w8.bfloat16() * sw.bfloat16()).contiguous()
+            s8 = sw.bfloat16()
+            p4, s4 = int4_matmul.pack_int4(torch.randn(K, N, generator=gen, device="cuda")
+                                           * K**-0.5)
+            routes = {
+                "bf16": lambda: x @ wb,
+                "w8a16": lambda: x @ (w8.to(s8.dtype) * s8),
+                "b3": lambda: int8_matmul.quantized_matmul(x, w8, s8),
+                "b7": lambda: int4_matmul.quantized_matmul_int4(x, p4, s4),
+            }
+            out[f"{name} {M}"] = times = {route: [] for route in routes}
+            order = list(routes)
+            for _ in range(rounds):
+                for route in order:
+                    times[route].append(smoke._cuda_ms(routes[route]))
+                order.reverse()
+            print(f"  site {name:12s} [{M}, {K}]x[{K}, {N}]: " + ", ".join(
+                f"{route} {statistics.median(t):.4f} ms ({min(t):.4f}-{max(t):.4f})"
+                for route, t in times.items()))
+            del x, w8, sw, wb, p4, s4
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--quantize", choices=("int8",), default=None)
+    parser.add_argument("--quantize", choices=("int8", "int4"), default=None)
     parser.add_argument("--model", choices=("t5", "qwen2.5-3b"), default="t5")
     opts = parser.parse_args()
     quantize = opts.quantize
-    if quantize and opts.model != "t5":
-        parser.error("--quantize int8 is ported for the T5 presets only")
+    if quantize == "int4" and opts.model == "t5":
+        parser.error("--quantize int4 targets decoder models (--model qwen2.5-3b)")
     preset = opts.model if opts.model != "t5" else "t5-xl" if quantize else "t5-large"
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -123,7 +178,9 @@ def main():
         cfg = DecoderConfig.qwen25_3b()
         gen = torch.Generator(device="cuda").manual_seed(0)
         model = decoder.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
-        engine = ScoringEngine("decoder", cfg, model, ByteTokenizer(cfg.vocab_size))
+        engine = ScoringEngine("decoder", cfg, model, ByteTokenizer(cfg.vocab_size),
+                               quantize=quantize)
+        del model  # a quantized engine holds its own copy of the weights
     docs = smoke.N_QUERIES * smoke.N_DOCS
 
     _rerank(args, engine, True)  # warm-up: first calls of each batch shape
@@ -168,6 +225,9 @@ def main():
         "busy_share_profiled": busy, "launches": launches,
         "family_ms": {f: us / 1e3 for f, us in by_family.items()},
     }
+    if quantize and opts.model != "t5":
+        print("per-site times, Qwen2.5-3B shapes, random weights (ms per call):")
+        out["site_ms"] = site_times()
     if not quantize:
         gen = torch.Generator(device="cuda").manual_seed(0)
         B, L = 32, 640

@@ -9,8 +9,8 @@ It builds the port's CUDA kernels from ``llmrankers_tpu_torch/csrc`` (one
 nvcc per source, side by side) and then, one line per phase:
 
 1. prints the device, and the card's name and power limit from nvidia-smi;
-2. builds ``flash_blhd.cu`` and ``int8_fusedq.cu`` and prints the build time
-   and ptxas's registers and spills;
+2. builds ``flash_blhd.cu``, ``int8_fusedq.cu`` and ``int4_w4a8.cu`` and
+   prints the build time and ptxas's registers and spills;
 3. B1: holds the flash kernel against its plain PyTorch version at the bf16
    path's shapes (flan-t5-large encoder: B 32, L 512 and 640, H 16, Dh 64,
    a rel-pos bias table of std 1 as in a trained model, right padding, one
@@ -21,8 +21,11 @@ nvcc per source, side by side) and then, one line per phase:
    Dh 64, qkv [32, 640, 6144]) against its plain version, with k read at
    q's offset and v at k's as negative controls;
 5. B3: the W8A8 GEMM at the xl sites qkv and wo (wo with and without a
-   residual), every element within one bf16 ulp of the plain version; a
-   whole-row activation scale and column scales rolled by one must fail;
+   residual, f32 column scales) and at Qwen2.5-3B's int8 sites wq/wo, wk/wv
+   and w_down (bf16 column scales, read in place), every element within one
+   bf16 ulp of the plain version; activation scales at another K-block (the
+   whole row, or half the K-block where it is the whole row) and column
+   scales rolled by one must fail;
 6. B4: the gated GEMM at xl wi_g with gelu_new, the same gate plus a stated
    tanh allowance; swapped halves and relu must fail;
 7. B5: the GQA flash kernel on [B, H, L, Dh] views of the projections at
@@ -31,31 +34,52 @@ nvcc per source, side by side) and then, one line per phase:
    suffix, Lq 512 over keys [prefix 256 | suffix 512] with padding holes,
    causal offset 256; (c) a sliding window of 128 at L 640, H 32, KV 8;
    KV head h % KV, causal offset 0 and no window must fail the gate;
-8. ``score_labels`` on a random-init flan-t5-large at full width in bf16
-   (its encoder bias table redrawn at std 1), once through the kernel and
-   once with plain attention: encoder outputs and label logits, with a
-   no-bias control at the encoder output;
-9. reranks 4 synthetic queries x 100 passages of 128 tokens end to end
-   through ``llmrankers_tpu_torch.cli.run.main`` on flan-t5-large in bf16
-   (setwise heapsort, likelihood, num_child 2, k 10), counting B1's launches;
-10. ``score_labels`` on a random-init flan-t5-xl at full width in W8A8 int8
+8. B6: the gated pair over two separate int8 weights at Qwen2.5-3B's FFN
+   ([20480, 2048] x 2 x [2048, 11008], silu), one bf16 ulp plus a silu
+   allowance; gate and up swapped must fail; the two bf16 products'
+   torch.matmul time as a yardstick;
+9. B7: the W4A8 GEMM at Qwen2.5-3B's int4 FFN sites (gate/up, G 512; down,
+   G 256) and a ragged M with a residual, one bf16 ulp; the zero-point term
+   dropped, group scales rolled by one group and the nibble planes swapped
+   must fail;
+10. B9: int8_matmul on activations quantized per row, at B3's qkv shape, one
+    bf16 ulp; sx rolled by one row must fail; torch._int_mm's time as a
+    yardstick;
+11. ``score_labels`` on a random-init flan-t5-large at full width in bf16
+    (its encoder bias table redrawn at std 1), once through the kernel and
+    once with plain attention: encoder outputs and label logits, with a
+    no-bias control at the encoder output;
+12. reranks 4 synthetic queries x 100 passages of 128 tokens end to end
+    through ``llmrankers_tpu_torch.cli.run.main`` on flan-t5-large in bf16
+    (setwise heapsort, likelihood, num_child 2, k 10), counting B1's launches;
+13. ``score_labels`` on a random-init flan-t5-xl at full width in W8A8 int8
     (encoder table at std 1), kernels against the same int8 path on their
     plain versions: encoder output, label logits, winners;
-11. the decision-parity battery at xl: bf16 against int8 label winners on
+14. the decision-parity battery at xl: bf16 against int8 label winners on
     64 prompts, overall and on the rows with a clear bf16 margin;
-12. the same end-to-end rerank on flan-t5-xl with ``--quantize int8``,
+15. the same end-to-end rerank on flan-t5-xl with ``--quantize int8``,
     counting the launches of B2, B3 and B4;
-13. ``score_labels`` on a random-init Qwen2.5-3B at full width in bf16, 32
+16. ``score_labels`` on a random-init Qwen2.5-3B at full width in bf16, 32
     setwise prompts of three 128-token passages in the chat template, on the
     plain (left-padded), shared-prefix and prefix-cache paths, kernel
     against plain attention: label logits, winners, last hidden states;
     rows gathering the next group's prefix K/V must fail the gate;
-14. reranks the 4 x 100 input end to end on that Qwen2.5-3B through
+17. reranks the 4 x 100 input end to end on that Qwen2.5-3B through
     ``SetwiseLlmRanker.rerank_many`` (inputs from the CLI's ``load_inputs``),
     counting B5's launches and the engine's programs;
-15. prints a JSON line of the five kernels (with each one's bound on this
-    card and the one-call PyTorch time where there is one), then
-    ``{"ok": true, "device": ...}``.
+18. ``score_labels`` on that Qwen2.5-3B with ``quantize="int8"``: the
+    left-padded path with the kernels (B3, B5, B6) against the same
+    quantized weights on the kernels' plain versions, label logits and last
+    hidden states within one bf16 ulp on every element (bf16's logits must
+    miss that gate), the cached path against it, the rolled-prefix control,
+    and the logits beside bf16's;
+19. the end-to-end rerank with ``quantize="int8"``, B5, B3 and B6 launched
+    in multiples of 36;
+20. and 21. the same two phases with ``quantize="int4"`` (B3, B5, B7);
+22. prints a JSON line of the eight kernels (with each one's bound on this
+    card and the one-call PyTorch time where there is one; B6, B7 and B9
+    carry a timing yardstick instead, and B9, which no path calls, is marked
+    standalone), then ``{"ok": true, "device": ...}``.
 
 Any failed check raises and the exit code is not 0. Without a CUDA GPU it
 exits with an error before printing anything. It imports nothing of JAX or of
@@ -82,14 +106,14 @@ from llmrankers_tpu_torch.engine.tokenizer import ByteTokenizer  # noqa: E402
 from llmrankers_tpu_torch.models import decoder, t5  # noqa: E402
 from llmrankers_tpu_torch.models.config import DecoderConfig, T5Config  # noqa: E402
 from llmrankers_tpu_torch.models.quant import quantize_weight  # noqa: E402
-from llmrankers_tpu_torch.ops import _build, flash, int8_matmul  # noqa: E402
+from llmrankers_tpu_torch.ops import _build, flash, int4_matmul, int8_matmul  # noqa: E402
 from llmrankers_tpu_torch.rankers.prompts import setwise_prompt  # noqa: E402
 from llmrankers_tpu_torch.rankers.setwise import SetwiseLlmRanker  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
-N_PHASES = 15
-SOURCES = ("flash_blhd", "int8_fusedq")
+N_PHASES = 22
+SOURCES = ("flash_blhd", "int8_fusedq", "int4_w4a8")
 KERNEL_TOL = 0.05  # bf16 flash kernel vs plain, max |diff| on rows with a valid key
 # Label logits through 24+24 bf16 layers, kernel vs plain: each layer's
 # output may differ by an ulp of bf16 (2^-8 relative), and the differences
@@ -108,8 +132,10 @@ INT8_ENC_TOL = 0.1
 # differ: |diff| <= 2^-7 |want| + 1e-6, one bf16 ulp.
 BF16_ULP = 2.0**-7
 # B4 adds, per element, 1e-5 * max |want|: the kernel's tanhf against
-# torch.tanh, near tanh = -1 where gelu_new cancels.
+# torch.tanh, near tanh = -1 where gelu_new cancels. B6 adds the same for
+# silu: the kernel's expf against torch.sigmoid's.
 TANH_ALLOWANCE = 1e-5
+SILU_ALLOWANCE = 1e-5
 N_QUERIES, N_DOCS, PASSAGE_TOKENS = 4, 100, 128
 QUERY_HEADS = ("alpha", "bravo", "charlie", "delta")  # distinct first words
 COUNTERS = {
@@ -118,6 +144,9 @@ COUNTERS = {
     "quantized_matmul": int8_matmul.quantized_matmul,
     "gated_matmul": int8_matmul.gated_matmul,
     "flash_mha": flash.flash_mha,
+    "gated_matmul_pair": int8_matmul.gated_matmul_pair,
+    "quantized_matmul_int4": int4_matmul.quantized_matmul_int4,
+    "int8_matmul": int8_matmul.int8_matmul,
 }
 # H100 SXM data sheet, dense rates at the 700 W limit: the least time a call
 # could take is the larger of its operations over the peak for their type and
@@ -176,9 +205,9 @@ def _sdpa_ms(q, k, v, mask, scale) -> float:
     return _cuda_ms(lambda: fn(q, k, v, **kw), iters=10, warmup=2)
 
 
-def _record(err, ms, plain_ms, bound, library_ms):
+def _record(err, ms, plain_ms, bound, library_ms, **extra):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": library_ms}
+            "bound_by": bound[1], "library_ms": library_ms, **extra}
 
 
 def phase_device():
@@ -360,13 +389,21 @@ def _ulp_gate(got, want, allowance=0.0):
     return d.max().item(), int((d > lim).sum().item())
 
 
+# B3's sites, (name, K, N, residual, bf16 column scales): flan-t5-xl's
+# packed qkv and wo, and Qwen2.5-3B's int8 sites (its scale leaves are bf16).
+B3_SITES = (("qkv", 2048, 6144, False, False), ("wo", 5120, 2048, False, False),
+            ("wo+res", 5120, 2048, True, False), ("Qwen wq/wo", 2048, 2048, False, True),
+            ("Qwen wk/wv", 2048, 256, False, True), ("Qwen w_down", 11008, 2048, False, True))
+
+
 def phase_quantized_matmul(gen):
-    """B3 at the flan-t5-xl sites qkv and wo (M = 32 rows x 640 tokens)."""
+    """B3 at the flan-t5-xl sites and Qwen2.5-3B's (M = 32 rows x 640 tokens)."""
     M = 32 * 640
     cases, timed = [], {}
-    for site, K, N, with_res in (("qkv", 2048, 6144, False), ("wo", 5120, 2048, False),
-                                 ("wo+res", 5120, 2048, True)):
+    for site, K, N, with_res, bf16_scales in B3_SITES:
         x, w8, sw = _int8_operands(gen, M, K, N)
+        if bf16_scales:
+            sw = sw.bfloat16()
         res = (torch.randn(M, N, generator=gen, device="cuda").bfloat16()
                if with_res else None)
         got = int8_matmul.quantized_matmul(x, w8, sw, residual=res)
@@ -382,8 +419,10 @@ def phase_quantized_matmul(gen):
             raise AssertionError(f"B3 {site}: {bad} elements over one bf16 ulp, "
                                  f"max |diff| {err}")
         kb = int8_matmul.kblock(K, N, x.dtype, with_res)
+        other_kb = K if kb != K else kb // 2  # a whole-row scale where kb < K
         controls = {
-            "whole-row scale": int8_matmul.quantized_matmul_plain(x, w8, sw, res, kblock=K),
+            "another K-block": int8_matmul.quantized_matmul_plain(x, w8, sw, res,
+                                                                  kblock=other_kb),
             "sw rolled": int8_matmul.quantized_matmul_plain(x, w8, sw.roll(1, 1), res),
         }
         ctl = {name: _ulp_gate(got, c)[1] for name, c in controls.items()}
@@ -395,23 +434,22 @@ def phase_quantized_matmul(gen):
             lambda: int8_matmul.quantized_matmul(x, w8, sw, residual=res),
             lambda: int8_matmul.quantized_matmul_plain(x, w8, sw, res), 3)
         tops = 2 * M * K * N / (ms * 1e-3) / 1e12
-        cases.append((site, K, N, kb, err, ctl, ms, plain_ms, tops, runs))
         bound = _bound(2 * M * K * N, _nbytes(x, w8, sw, res, got), H100_INT8_OPS)
+        cases.append((site, K, N, kb, other_kb, sw.dtype, err, ctl, ms, plain_ms, tops, runs,
+                      bound))
         timed[site] = (err, ms, plain_ms, bound)
         del x, w8, sw, res, got
     text = "; ".join(
-        f"{site} [{M}, {K}]x[{K}, {N}] K-block {kb}: max |diff| {err:.4g}, "
-        f"over the gate with a whole-row scale {ctl['whole-row scale']} and with sw "
-        f"rolled {ctl['sw rolled']} elements; kernel {ms:.4f} ms ({tops:.1f} TOP/s), "
-        f"plain {plain_ms:.4f} ms ({_turns_text(runs)})"
-        for site, K, N, kb, err, ctl, ms, plain_ms, tops, runs in cases)
-    bound = timed["qkv"][3]
+        f"{site} [{M}, {K}]x[{K}, {N}] K-block {kb}, {str(dt)[6:]} sw: max |diff| "
+        f"{err:.4g}, over the gate with K-block {okb} {ctl['another K-block']} and with "
+        f"sw rolled {ctl['sw rolled']} elements; kernel {ms:.4f} ms ({tops:.1f} TOP/s), "
+        f"plain {plain_ms:.4f} ms ({_turns_text(runs)}), bound {b[0]:.4f} ms ({b[1]})"
+        for site, K, N, kb, okb, dt, err, ctl, ms, plain_ms, tops, runs, b in cases)
     print(f"[5/{N_PHASES}] B3 W8A8 GEMM vs plain, bf16 x, gate |diff| <= 2^-7 |want| "
           f"+ 1e-6 on every element; all-zero rows exactly 0*sw (+ residual); {text}; "
-          f"bound at qkv {bound[0]:.4f} ms ({bound[1]}); no one PyTorch call computes "
-          f"it (per-row, per-K-block activation quantization)")
+          f"no one PyTorch call computes it (per-row, per-K-block activation quantization)")
     err = max(t[0] for t in timed.values())
-    return _record(err, timed["qkv"][1], timed["qkv"][2], bound, None)
+    return _record(err, *timed["qkv"][1:], None)
 
 
 def phase_gated_matmul(gen):
@@ -453,6 +491,147 @@ def phase_gated_matmul(gen):
           f"plain {plain_ms:.4f} ms ({_turns_text(runs)}); bound {bound[0]:.4f} ms "
           f"({bound[1]}); no one PyTorch call computes it")
     return _record(err, ms, plain_ms, bound, None)
+
+
+def phase_gated_pair(gen):
+    """B6 at Qwen2.5-3B's FFN: [20480, 2048] x two [2048, 11008], silu."""
+    M, K, N = 32 * 640, 2048, 11008
+    x, w0, s0 = _int8_operands(gen, M, K, N)
+    w1, s1 = quantize_weight(torch.randn(K, N, generator=gen, device="cuda") * K**-0.5)
+    # The decoder's scales are bf16 leaves, which the kernel reads in place.
+    s0, s1 = s0.bfloat16(), s1.bfloat16()
+    got = int8_matmul.gated_matmul_pair(x, w0, s0, w1, s1)
+    torch.cuda.synchronize()
+    want = int8_matmul.gated_matmul_pair_plain(x, w0, s0, w1, s1)
+    if not torch.isfinite(got).all() or got.shape != (M, N):
+        raise AssertionError(f"B6: shape {tuple(got.shape)} or not finite")
+    allowance = SILU_ALLOWANCE * want.float().abs().max().item()
+    err, bad = _ulp_gate(got, want, allowance)
+    if bad:
+        raise AssertionError(f"B6: {bad} elements over the gate, max |diff| {err}")
+    ctl = _ulp_gate(got, int8_matmul.gated_matmul_pair_plain(x, w1, s1, w0, s0), allowance)[1]
+    del want
+    if ctl == 0:
+        raise AssertionError("B6: the gate passes gate and up swapped")
+    ms, plain_ms, runs = _in_turns(
+        lambda: int8_matmul.gated_matmul_pair(x, w0, s0, w1, s1),
+        lambda: int8_matmul.gated_matmul_pair_plain(x, w0, s0, w1, s1), 3)
+    tops = 2 * M * K * 2 * N / (ms * 1e-3) / 1e12
+    bound = _bound(2 * M * K * 2 * N, _nbytes(x, w0, s0, w1, s1, got), H100_INT8_OPS)
+    wb0, wb1 = (w.bfloat16() * s.bfloat16() for w, s in ((w0, s0), (w1, s1)))
+    yard = _cuda_ms(lambda: (x @ wb0, x @ wb1), iters=10, warmup=2)
+    print(f"[8/{N_PHASES}] B6 gated pair W8A8 GEMM vs plain, silu, Qwen2.5-3B FFN "
+          f"[{M}, {K}]x2x[{K}, {N}] K-block {int8_matmul.kblock(K, N, x.dtype, gated=True)}: "
+          f"max |diff| {err:.4g} (gate 2^-7 |want| + 1e-6 + silu allowance "
+          f"{allowance:.4g}); over the gate with gate and up swapped {ctl} elements; "
+          f"kernel {ms:.4f} ms ({tops:.1f} TOP/s), plain {plain_ms:.4f} ms "
+          f"({_turns_text(runs)}); bound {bound[0]:.4f} ms ({bound[1]}); no one PyTorch "
+          f"call computes it; yardstick for timing only: the two bf16 products "
+          f"(torch.matmul on the dequantized weights) {yard:.4f} ms")
+    return _record(err, ms, plain_ms, bound, None, yardstick_ms=yard,
+                   yardstick="two bf16 torch.matmul on the dequantized weights")
+
+
+def _w4_operands(gen, M, K, N, residual):
+    x, _, _ = _int8_operands(gen, M, K, 128)
+    p4, sw = int4_matmul.pack_int4(torch.randn(K, N, generator=gen, device="cuda") * K**-0.5)
+    res = torch.randn(M, N, generator=gen, device="cuda").bfloat16() if residual else None
+    return x, p4.contiguous(), sw.contiguous(), res
+
+
+def _w4_zero_point(x, sw):
+    """The zero-point term the plain version subtracts, as [M, N] f32: a
+    kernel that dropped it would add this to its output."""
+    G = x.shape[1] // sw.shape[0]
+    q, scale = int8_matmul.quantize_blocks(x, G)
+    zsum = 8 * q[:, :, : G // 2].sum(-1)  # [M, nk]
+    return ((zsum * scale).double() @ sw.double()).float()
+
+
+def phase_int4(gen):
+    """B7 at Qwen2.5-3B's int4 FFN sites (gate/up G 512, down G 256), and a
+    ragged M with a residual."""
+    cases, rec = [], None
+    for site, M, K, N, with_res in (("gate/up", 32 * 640, 2048, 11008, False),
+                                    ("down", 32 * 640, 11008, 2048, False),
+                                    ("ragged+res", 1000, 2048, 11008, True)):
+        x, p4, sw, res = _w4_operands(gen, M, K, N, with_res)
+        got = int4_matmul.quantized_matmul_int4(x, p4, sw, residual=res)
+        torch.cuda.synchronize()
+        want = int4_matmul.quantized_matmul_int4_plain(x, p4, sw, res)
+        if not torch.isfinite(got).all() or got.shape != (M, N):
+            raise AssertionError(f"B7 {site}: shape {tuple(got.shape)} or not finite")
+        err, bad = _ulp_gate(got, want)
+        if bad:
+            raise AssertionError(f"B7 {site}: {bad} elements over one bf16 ulp, "
+                                 f"max |diff| {err}")
+        swapped = (((p4 & 0x0F) << 4) | ((p4 >> 4) & 0x0F)).to(torch.int8)
+        controls = {
+            "zero point dropped": (want.float() + _w4_zero_point(x, sw)).bfloat16(),
+            "scales rolled by one group": int4_matmul.quantized_matmul_int4_plain(
+                x, p4, sw.roll(1, 0), res),
+            "nibble planes swapped": int4_matmul.quantized_matmul_int4_plain(
+                x, swapped, sw, res),
+        }
+        ctl = {name: _ulp_gate(got, c)[1] for name, c in controls.items()}
+        del controls, want, swapped
+        blind = [name for name, n in ctl.items() if n == 0]
+        if blind:
+            raise AssertionError(f"B7 {site}: the gate passes {blind}")
+        ms, plain_ms, runs = _in_turns(
+            lambda: int4_matmul.quantized_matmul_int4(x, p4, sw, residual=res),
+            lambda: int4_matmul.quantized_matmul_int4_plain(x, p4, sw, res), 3)
+        tops = 2 * M * K * N / (ms * 1e-3) / 1e12
+        bound = _bound(2 * M * K * N, _nbytes(x, p4, sw, res, got), H100_INT8_OPS)
+        wb = int4_matmul.unpack_int4(p4, sw).bfloat16()
+        yard = _cuda_ms(lambda: x @ wb, iters=10, warmup=2)
+        G = K // sw.shape[0]
+        cases.append(f"{site} [{M}, {K}]x[{K}, {N}] G {G}: max |diff| {err:.4g}; over the "
+                     f"gate " + ", ".join(f"{n} {v}" for n, v in ctl.items())
+                     + f" elements; kernel {ms:.4f} ms ({tops:.1f} TOP/s), plain "
+                     f"{plain_ms:.4f} ms ({_turns_text(runs)}); bound {bound[0]:.4f} ms "
+                     f"({bound[1]}); bf16 torch.matmul yardstick {yard:.4f} ms")
+        if rec is None:
+            rec = _record(err, ms, plain_ms, bound, None, yardstick_ms=yard,
+                          yardstick="bf16 torch.matmul on the dequantized weight")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        del x, p4, sw, res, got, wb
+        torch.cuda.empty_cache()
+    print(f"[9/{N_PHASES}] B7 W4A8 GEMM vs plain, bf16 x, gate |diff| <= 2^-7 |want| + "
+          f"1e-6 on every element: " + "; ".join(cases) + "; no one PyTorch call "
+          f"computes it (the yardstick is for timing only)")
+    return rec
+
+
+def phase_int8_matmul(gen):
+    """B9 at B3's xl qkv shape, on activations quantized per row."""
+    M, K, N = 32 * 640, 2048, 6144
+    x, w8, sw = _int8_operands(gen, M, K, N)
+    x8, sx = int8_matmul.quantize_rows(x)
+    got = int8_matmul.int8_matmul(x8, sx, w8, sw)
+    torch.cuda.synchronize()
+    want = int8_matmul.int8_matmul_plain(x8, sx, w8, sw)
+    if not torch.isfinite(got).all() or got.shape != (M, N):
+        raise AssertionError(f"B9: shape {tuple(got.shape)} or not finite")
+    err, bad = _ulp_gate(got, want)
+    if bad:
+        raise AssertionError(f"B9: {bad} elements over one bf16 ulp, max |diff| {err}")
+    ctl = _ulp_gate(got, int8_matmul.int8_matmul_plain(x8, sx.roll(1, 0), w8, sw))[1]
+    if ctl == 0:
+        raise AssertionError("B9: the gate passes sx rolled by one row")
+    ms, plain_ms, runs = _in_turns(lambda: int8_matmul.int8_matmul(x8, sx, w8, sw),
+                                   lambda: int8_matmul.int8_matmul_plain(x8, sx, w8, sw), 3)
+    tops = 2 * M * K * N / (ms * 1e-3) / 1e12
+    bound = _bound(2 * M * K * N, _nbytes(x8, sx, w8, sw, got), H100_INT8_OPS)
+    int_mm = _cuda_ms(lambda: torch._int_mm(x8, w8), iters=10, warmup=2)
+    print(f"[10/{N_PHASES}] B9 int8_matmul vs plain, pre-quantized x8 [{M}, {K}] x "
+          f"[{K}, {N}]: max |diff| {err:.4g} (gate one bf16 ulp); over the gate with sx "
+          f"rolled by one row {ctl} elements; kernel {ms:.4f} ms ({tops:.1f} TOP/s), "
+          f"plain {plain_ms:.4f} ms ({_turns_text(runs)}); bound {bound[0]:.4f} ms "
+          f"({bound[1]}); no one PyTorch call computes it; yardstick for timing only: "
+          f"torch._int_mm (the int32 product alone, no scales) {int_mm:.4f} ms")
+    return _record(err, ms, plain_ms, bound, None, yardstick_ms=int_mm,
+                   yardstick="torch._int_mm, the int32 product without the scales")
 
 
 def _key_mask(gen, B, Lq, Lk, layout):
@@ -642,7 +821,7 @@ def phase_score_labels(cfg, model):
         raise AssertionError(f"gate {ENC_TOL} passes the encoder without its "
                              f"bias: relative error {enc_ctl}")
     diff, agree, clear = _compare_logits(logits[True], logits[False], "bf16")
-    print(f"[8/{N_PHASES}] score_labels, flan-t5-large random init bf16 (encoder "
+    print(f"[11/{N_PHASES}] score_labels, flan-t5-large random init bf16 (encoder "
           f"rel-pos table of std 1), 32 rows x {max(map(len, rows))} tokens (L bucket "
           f"640): encoder output kernel vs plain relative error {enc_err:.4g} (tol "
           f"{ENC_TOL}), without the bias {enc_ctl:.4g}; label logits kernel vs plain "
@@ -666,7 +845,7 @@ def phase_int8_score_labels(cfg, model):
         raise AssertionError(f"int8 encoder output kernels vs plain: relative error "
                              f"{enc_err} > {INT8_ENC_TOL}")
     diff, agree, clear = _compare_logits(logits[False], logits[True], "int8")
-    print(f"[10/{N_PHASES}] score_labels, flan-t5-xl random init W8A8 int8 (bf16 "
+    print(f"[13/{N_PHASES}] score_labels, flan-t5-xl random init W8A8 int8 (bf16 "
           f"activations, encoder rel-pos table of std 1), 32 rows x "
           f"{max(map(len, rows))} tokens: encoder output kernels vs plain versions "
           f"relative error {enc_err:.4g} (tol {INT8_ENC_TOL}); label logits max |diff| "
@@ -680,7 +859,7 @@ def phase_parity(model):
     res = parity.t5_int8_decision_parity(model)
     if res["winner_agreement_clear_margin"] != 1.0:
         raise AssertionError(f"int8 decision parity on clear-margin rows: {res}")
-    print(f"[11/{N_PHASES}] decision parity, flan-t5-xl random init, bf16 vs W8A8 int8, "
+    print(f"[14/{N_PHASES}] decision parity, flan-t5-xl random init, bf16 vs W8A8 int8, "
           f"{res['prompts']} prompts (bench.py's battery): label winners agree on "
           f"{res['winner_agreement']:.4f} of all rows and "
           f"{res['winner_agreement_clear_margin']:.4f} of the rows with a bf16 margin "
@@ -854,21 +1033,29 @@ def phase_decoder_score_labels(cfg, model):
         raise AssertionError(f"gates {ENC_TOL}, {LOGIT_TOL} pass rows that gather the "
                              f"next group's prefix K/V: relative error {rolled}, logits "
                              f"{rolled_logits}")
-    print(f"[13/{N_PHASES}] score_labels, Qwen2.5-3B random init bf16, 32 rows x "
+    print(f"[16/{N_PHASES}] score_labels, Qwen2.5-3B random init bf16, 32 rows x "
           f"{max(map(len, rows))} tokens, 4 query heads, kernel vs plain attention "
           f"(logit tol {LOGIT_TOL}): " + "; ".join(text)
           + f"; shared vs plain path {shared_vs_plain:.4g}; last hidden state relative "
           f"error " + ", ".join(f"{p} {e:.4g}" for p, e in errs.items())
           + f" (tol {ENC_TOL}); rows gathering the next group's prefix K/V {rolled:.4g}, "
           f"logits {rolled_logits:.4g}, both over tol")
+    return logits["plain", True]
 
 
-def phase_decoder_end_to_end(cfg, model):
-    """Rerank the 4 x 100 input on Qwen2.5-3B through SetwiseLlmRanker; the
-    counts are set to 0 just before and read just after."""
+# The kernels a quantized Qwen2.5-3B rerank must launch besides B5.
+QUANT_KERNELS = {None: (), "int8": ("quantized_matmul", "gated_matmul_pair"),
+                 "int4": ("quantized_matmul", "quantized_matmul_int4")}
+
+
+def phase_decoder_end_to_end(n, cfg, model, quantize=None):
+    """Rerank the 4 x 100 input on Qwen2.5-3B through SetwiseLlmRanker, on
+    the model's own weights or with ``quantize``; the counts are set to 0
+    just before and read just after."""
     paths = _write_inputs()
     args = cli_args(paths, "dec-tiny")  # the model is built here, not from the preset
-    engine = ScoringEngine("decoder", cfg, model, ByteTokenizer(cfg.vocab_size))
+    engine = ScoringEngine("decoder", cfg, model, ByteTokenizer(cfg.vocab_size),
+                           quantize=quantize)
     ranker = cli_run.make_ranker(args, engine)
     first_stage = cli_run.load_inputs(args, ranker)
     torch.cuda.synchronize()
@@ -885,10 +1072,10 @@ def phase_decoder_end_to_end(cfg, model):
         if sorted(d.docid for d in got) != sorted(d.docid for d in ranking) or len(
                 got) != N_DOCS:
             raise AssertionError(f"{qid}: output is not a ranking of its {N_DOCS} docs")
-    attn = launches["flash_mha"]
-    if attn == 0 or attn % cfg.num_hidden_layers:
-        raise AssertionError(f"{attn} flash_mha launches is not a positive multiple of "
-                             f"{cfg.num_hidden_layers} layers: {launches}")
+    for name in ("flash_mha",) + QUANT_KERNELS[quantize]:
+        if launches[name] == 0 or launches[name] % cfg.num_hidden_layers:
+            raise AssertionError(f"{launches[name]} {name} launches is not a positive "
+                                 f"multiple of {cfg.num_hidden_layers} layers: {launches}")
     programs = dict(engine.programs)
     missing = [p for p in ("dec_labels", "prefix_kv") if not programs.get(p)]
     if not (programs.get("dec_labels_shared") or programs.get("dec_labels_pre")):
@@ -897,20 +1084,92 @@ def phase_decoder_end_to_end(cfg, model):
         raise AssertionError(f"the rerank never ran {missing}: {programs}")
     comps = ranker.stats.comparisons
     mem = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[14/{N_PHASES}] end to end, SetwiseLlmRanker.rerank_many on Qwen2.5-3B "
-          f"random init bf16 (inputs from load_inputs), setwise heapsort likelihood "
-          f"num_child 2 k 10, {N_QUERIES} queries x {N_DOCS} passages of "
-          f"{PASSAGE_TOKENS} tokens: rerank wall {wall:.3f} s, {N_QUERIES * N_DOCS / wall:.1f}"
-          f" docs/s, {comps} comparisons ({comps / N_QUERIES:.1f} per query); programs "
-          f"{programs}; pkv_stats {engine.pkv_stats}; launches: "
-          + ", ".join(f"{k} {v}" for k, v in launches.items())
+    print(f"[{n}/{N_PHASES}] end to end, SetwiseLlmRanker.rerank_many on Qwen2.5-3B "
+          f"random init bf16{' --quantize ' + quantize if quantize else ''} (inputs from "
+          f"load_inputs), setwise heapsort likelihood num_child 2 k 10, {N_QUERIES} "
+          f"queries x {N_DOCS} passages of {PASSAGE_TOKENS} tokens: rerank wall "
+          f"{wall:.3f} s, {N_QUERIES * N_DOCS / wall:.1f} docs/s, {comps} comparisons "
+          f"({comps / N_QUERIES:.1f} per query); programs {programs}; pkv_stats "
+          f"{engine.pkv_stats}; launches: " + ", ".join(f"{k} {v}" for k, v in launches.items())
           + f"; max memory allocated {mem:.2f} GiB")
     return launches
 
 
-def _kernel_entry(name, source, replaces, launches, measured):
+def phase_quant_decoder_score_labels(n, cfg, model, quantize, bf16_logits):
+    """Qwen2.5-3B score_labels with ``quantize``: the left-padded path with
+    the kernels against the same quantized model on their plain versions
+    (float64 sums: one path only), label logits and last hidden states held
+    to one bf16 ulp per element (every kernel matches its plain version to
+    the bit, and attention is B5 in both runs), with bf16's logits as the
+    control that must miss; the cached path with the kernels against the
+    left-padded one, shared-path hidden states, a rolled-gidx control, and
+    the logits beside bf16's."""
+    tok = ByteTokenizer(cfg.vocab_size)
+    engine = ScoringEngine("decoder", cfg, model, tok, quantize=quantize, prefix_share=False)
+    qmodel, qcfg = engine.model, engine.cfg
+    ranker = SetwiseLlmRanker(engine, num_child=2, k=10, scoring="likelihood")
+    rows, labels = _decoder_rows(ranker), ranker.label_ids[:3]
+    logits, wall = {}, {}
+    for plain in (False, True):
+        qmodel.plain_kernels = plain
+        logits[plain], wall[plain] = _timed_scores(engine, rows, labels, [])
+    qmodel.plain_kernels = False
+    _, agree, clear = _compare_logits(logits[False], logits[True], f"{quantize} plain path")
+    cached = ScoringEngine("decoder", qcfg, qmodel, tok)  # already quantized
+    logits["cached"], wall["cached"] = _timed_scores(cached, rows, labels, [])
+    cached_diff, _, _ = _compare_logits(logits["cached"], logits[False],
+                                        f"{quantize} cached vs plain path")
+    ids, mask, nrows, _ = engine._pad_batch(rows, left=True)
+    ids, mask = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+    hid = {}
+    for plain in (False, True):
+        qmodel.plain_kernels = plain
+        with torch.inference_mode():
+            hid[plain] = qmodel.forward_hidden(ids, mask)[0][:, -1][:nrows].float()
+    qmodel.plain_kernels = False
+    t = torch.from_numpy
+    ulp = {"label logits": _ulp_gate(t(logits[False]), t(logits[True])),
+           "last hidden states": _ulp_gate(hid[False], hid[True])}
+    over = {what: g for what, g in ulp.items() if g[1]}
+    if over:
+        raise AssertionError(f"{quantize} kernels vs plain versions, (max |diff|, elements "
+                             f"over one bf16 ulp): {over}")
+    ctl_bf16 = _ulp_gate(t(bf16_logits), t(logits[True]))
+    if ctl_bf16[1] == 0:
+        raise AssertionError(f"the one-ulp gate passes bf16's logits for {quantize}'s")
+    shared = ScoringEngine("decoder", qcfg, qmodel, tok, prefix_cache_mb=0)
+    hid["shared"] = _shared_last_hidden(shared, rows)
+    hid["rolled"] = _shared_last_hidden(shared, rows, roll=1)
+    errs = {"shared vs plain path": _rel(hid["shared"], hid[False])}
+    bad = {p: e for p, e in errs.items() if not e <= INT8_ENC_TOL}
+    if bad:
+        raise AssertionError(f"{quantize} last hidden state relative error over "
+                             f"{INT8_ENC_TOL}: {bad}")
+    rolled = _rel(hid["rolled"], hid["shared"])
+    if not rolled > INT8_ENC_TOL:
+        raise AssertionError(f"gate {INT8_ENC_TOL} passes rows that gather the next "
+                             f"group's prefix K/V: relative error {rolled}")
+    vs_bf16 = float(np.abs(logits[False] - bf16_logits).max())
+    same = int((logits[False].argmax(1) == bf16_logits.argmax(1)).sum())
+    print(f"[{n}/{N_PHASES}] score_labels, Qwen2.5-3B random init --quantize {quantize}, "
+          f"32 rows x {max(map(len, rows))} tokens, kernels vs their plain versions on the "
+          f"same quantized weights, gate one bf16 ulp per element: plain path "
+          + ", ".join(f"{what} max |diff| {g[0]:.4g} ({g[1]} elements over)"
+                      for what, g in ulp.items())
+          + f", bf16's logits {ctl_bf16[1]} of {logits[True].size} over; winners "
+          f"{agree}/32, {clear} clear rows agree, wall {wall[False] * 1e3:.1f} ms kernels "
+          f"vs {wall[True] * 1e3:.1f} ms plain versions; cached path (kernels, "
+          f"{'+'.join(sorted(cached.programs))}) vs plain path {cached_diff:.4g} (tol "
+          f"{LOGIT_TOL}), wall {wall['cached'] * 1e3:.1f} ms; last hidden state relative "
+          f"error " + ", ".join(f"{p} {e:.4g}" for p, e in errs.items())
+          + f" (tol {INT8_ENC_TOL}); rows gathering the next group's prefix K/V "
+          f"{rolled:.4g}, over tol; against bf16 (information, no gate): label logits max "
+          f"|diff| {vs_bf16:.4g}, winners equal on {same}/32 rows")
+
+
+def _kernel_entry(name, source, replaces, launches, measured, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, **measured}
+            "launches": launches, **measured, **extra}
 
 
 def main():
@@ -925,6 +1184,11 @@ def main():
     torch.cuda.empty_cache()
     b5 = phase_flash_mha(gen)
     torch.cuda.empty_cache()
+    b6 = phase_gated_pair(gen)
+    torch.cuda.empty_cache()
+    b7 = phase_int4(gen)
+    b9 = phase_int8_matmul(gen)
+    torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = t5.init_params(large, gen, dtype=torch.bfloat16, device="cuda")
     with torch.no_grad():
@@ -932,7 +1196,7 @@ def main():
     phase_score_labels(large, model)
     del model
     torch.cuda.empty_cache()
-    bf16_launches = phase_end_to_end(9, "t5-large")
+    bf16_launches = phase_end_to_end(12, "t5-large")
     torch.cuda.empty_cache()
     model = t5.init_params(xl, gen, dtype=torch.bfloat16, device="cuda")
     with torch.no_grad():
@@ -942,16 +1206,22 @@ def main():
     phase_parity(model)
     del model
     torch.cuda.empty_cache()
-    int8_launches = phase_end_to_end(12, "t5-xl", "int8")
+    int8_launches = phase_end_to_end(15, "t5-xl", "int8")
     torch.cuda.empty_cache()
     qwen = DecoderConfig.qwen25_3b()
     model = decoder.init_params(qwen, gen, dtype=torch.bfloat16, device="cuda")
-    phase_decoder_score_labels(qwen, model)
+    bf16_logits = phase_decoder_score_labels(qwen, model)
     torch.cuda.empty_cache()
-    dec_launches = phase_decoder_end_to_end(qwen, model)
+    dec_launches = phase_decoder_end_to_end(17, qwen, model)
+    quant_launches = {}
+    for n, quantize in ((18, "int8"), (20, "int4")):
+        torch.cuda.empty_cache()
+        phase_quant_decoder_score_labels(n, qwen, model, quantize, bf16_logits)
+        torch.cuda.empty_cache()
+        quant_launches[quantize] = phase_decoder_end_to_end(n + 1, qwen, model, quantize)
     del model
     csrc, ops = "llmrankers_tpu_torch/csrc/", "llmrankers_tpu/ops/"
-    print(f"[15/{N_PHASES}] kernels and result:")
+    print(f"[22/{N_PHASES}] kernels and result:")
     print(json.dumps({"kernels": [
         _kernel_entry("flash_mha_blhd", csrc + "flash_blhd.cu", ops + "flash.py:373",
                       bf16_launches["flash_mha_blhd"], b1),
@@ -963,6 +1233,14 @@ def main():
                       ops + "int8_matmul.py:564", int8_launches["gated_matmul"], b4),
         _kernel_entry("flash_mha", csrc + "flash_blhd.cu", ops + "flash.py:220",
                       dec_launches["flash_mha"], b5),
+        _kernel_entry("gated_matmul_pair", csrc + "int8_fusedq.cu",
+                      ops + "int8_matmul.py:671", quant_launches["int8"]["gated_matmul_pair"],
+                      b6),
+        _kernel_entry("quantized_matmul_int4", csrc + "int4_w4a8.cu",
+                      ops + "int4_matmul.py:281",
+                      quant_launches["int4"]["quantized_matmul_int4"], b7),
+        _kernel_entry("int8_matmul", csrc + "int8_fusedq.cu", ops + "int8_matmul.py:131",
+                      0, b9, standalone=True),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

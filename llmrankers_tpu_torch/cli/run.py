@@ -16,7 +16,10 @@ no GPU is present; the CPU runs only when asked for with ``--device cpu``.
 Models are the ``random:{t5-tiny,t5-large,t5-xl,dec-tiny,mistral-tiny}``
 presets (random weights from ``--seed``; ``mistral-tiny`` is ``dec-tiny``
 with a sliding window of 64); ``--quantize int8`` runs the T5 presets as
-W8A8 int8 on the int8 kernels. They tokenize with the byte tokenizer, or
+W8A8 int8 on the int8 kernels, and ``--quantize int8|int4`` the decoder
+presets with int8 or mixed int4/int8 weights (the kernels take the sites
+whose widths are multiples of 128; the 64-wide presets reach none). They
+tokenize with the byte tokenizer, or
 with the local HF tokenizer directory that ``--tokenizer_name_or_path``
 names (for example flan-t5's, for prompts of its real token lengths).
 ``--prefix_cache_mb`` sizes the decoder engine's cross-wave prefix-KV cache.
@@ -36,6 +39,7 @@ from typing import List, Optional
 import torch
 
 from ..models.config import DecoderConfig, T5Config
+from ..utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -273,7 +277,7 @@ def _check_ported(args) -> None:
     unported = [
         (r.openai_key, "--openai_key (API rankers)", "A6"),
         (r.kv_quantize, "--kv_quantize", "A8"),
-        (r.awq_calib_file, "--awq_calib_file", "A9"),
+        (r.awq_calib_file, "--awq_calib_file", "A9 (AWQ)"),
         (r.spec_lookup, "--spec_lookup", "A8"),
         (r.lora_path_or_name, "--lora_path_or_name", "A10"),
         (r.prompt_file, "--prompt_file (Rank-R1)", "A8"),
@@ -294,16 +298,6 @@ def _check_ported(args) -> None:
             raise NotImplementedError(f"{flag} is not ported yet (ROADMAP {item})")
 
 
-def resolve_device(name) -> torch.device:
-    """``--device``: ``cuda`` unless another device is named; a missing GPU
-    raises instead of falling back to the CPU."""
-    device = torch.device(name or "cuda")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass --device cpu "
-                           "to run on the CPU")
-    return device
-
-
 def make_engine(run_args):
     """A ScoringEngine on ``--device`` for a ``random:`` preset."""
     from ..engine.engine import ScoringEngine
@@ -311,7 +305,7 @@ def make_engine(run_args):
     from ..models import decoder as dec_mod
     from ..models import t5 as t5_mod
 
-    device = resolve_device(run_args.device)
+    device = resolve_device(run_args.device, cpu_hint="pass --device cpu")
     name = run_args.model_name_or_path or ""
     if not name.startswith("random:"):
         raise NotImplementedError(

@@ -1,26 +1,32 @@
 // W8A8 int8 GEMMs with activation quantization in the kernel, for sm_90a.
 //
-// Replaces the TPU kernels llmrankers_tpu/ops/int8_matmul.py::quantized_matmul
-// (body _kernel_fusedq) and ::gated_matmul (body _kernel_gated):
-//   quantized_matmul: out = (sum_kb float(x8_kb . w8_kb) * sx[row, kb]) * sw (+ res)
-//   gated_matmul:     out = act(h0 * s0) * (h1 * s1) over one packed [K, 2N]
-//                     int8 weight whose halves sit at columns 0 and N.
+// Replaces the TPU kernels of llmrankers_tpu/ops/int8_matmul.py:
+//   quantized_matmul (body _kernel_fusedq):
+//       out = (sum_kb float(x8_kb . w8_kb) * sx[row, kb]) * sw (+ res)
+//   gated_matmul (body _kernel_gated), over one packed [K, 2N] weight whose
+//   halves sit at columns 0 and N, and gated_matmul_pair (the same body),
+//   over two separate [K, N] weights w0 and w1:
+//       out = act(h0 * s0) * (h1 * s1), act gelu_new, relu or silu
+//   int8_matmul (body _kernel), on activations quantized by the caller:
+//       out = (float(x8 . w8) * sx) * sw, the int32 sum over all of K
 // x is bf16 [M, K]; it is quantized per row and per K-block of kb columns
 // (kb is the TPU kernel's K-block, computed by the Python wrapper), with the
 // TPU body's arithmetic step for step: scale = max(amax, 1e-8) * f32(1/127),
 // q = clip(rint(x * rcp_rn(scale)), -127, 127). Every f32 step of the fold
 // and the epilogue uses round-to-nearest intrinsics with no contraction into
 // FMA, in the plain version's order, so the kernel and its plain PyTorch
-// version agree to the last bit wherever the int8 values agree.
+// version agree to the last bit wherever the int8 values agree. int8_matmul
+// is the GEMM alone with kb = K: its fold computes 0 + float(acc) * sx, which
+// is float(acc) * sx exactly, and the int32 sum is exact for K <= 133,000.
 //
-// Design. Two launches per call. (1) One warp per (row, K-block) computes
-// amax, writes the int8 row block to a scratch [M, K] and its scale to
-// [M, K/kb]; the wrapper allocates both. A K-block of 576 to 2048 bf16 per
-// row does not fit a GEMM tile, so amax must be known before the block is
-// quantized; the separate pass reads x once and writes a quarter of its
-// bytes. (2) The GEMM: one block of eight warps per 128 x 128 output tile
-// (gated: 128 rows x 64 columns of each half, both halves sharing the A
-// tile), K in stages of 64 bytes. A (int8 x, K-contiguous) is staged as it
+// Design. Two launches per call (int8_matmul: the GEMM only). (1) One warp
+// per (row, K-block) computes amax, writes the int8 row block to a scratch
+// [M, K] and its scale to [M, K/kb]; the wrapper allocates both. A K-block of
+// 576 to 2048 bf16 per row does not fit a GEMM tile, so amax must be known
+// before the block is quantized; the separate pass reads x once and writes a
+// quarter of its bytes. (2) The GEMM: one block of eight warps per 128 x 128
+// output tile (gated: 128 rows x 64 columns of each weight, both sharing the
+// A tile), K in stages of 64 bytes. A (int8 x, K-contiguous) is staged as it
 // is; B (int8 w, [K, N] N-contiguous) is transposed to K-contiguous while it
 // is staged, four k-rows of eight columns at a time with byte permutes, since
 // mma.sync wants B K-major and ldmatrix .trans handles only 16-bit elements.
@@ -33,10 +39,13 @@
 // products run on the tensor cores as mma.sync.m16n8k32.s32.s8.s8.s32; each
 // warp owns 64 rows x 32 columns with int32 accumulators that are folded
 // into f32 (times the row scale) and reset at the end of every K-block,
-// never carried across it.
+// never carried across it. The gated variants read their two weights through
+// two pointers with one row stride: w1 = w0 + N and stride 2N for the packed
+// leaf, the second weight and stride N for the pair.
 //
 // What bounds it. At flan-t5-xl's encoder shapes (M = 20480, K 2048 or
-// 5120, N 2048 to 2 x 5120) the work is bound by the int8 tensor-core rate.
+// 5120, N 2048 to 2 x 5120) and Qwen2.5-3B's (M = 20480, K 2048 or 11008,
+// N 256 to 2 x 11008) the work is bound by the int8 tensor-core rate.
 // mma.sync from registers, one stage of prefetch and one block of eight
 // warps per SM (240 registers a thread) leave most of that rate unused.
 // Later work: wgmma from shared memory with TMA and a deeper pipeline, the
@@ -46,93 +55,36 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_mma.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;   // eight warps: 2 along M x 4 along N
 constexpr int kBM = 128;        // output rows per block
-constexpr int kBN = 128;        // B-tile columns (gated: 64 of each half)
+constexpr int kBN = 128;        // B-tile columns (gated: 64 of each weight)
 constexpr int kBK = 64;         // int8 K per stage; every K-block is a multiple
 constexpr int kRow = kBK + 16;  // shared-memory row stride in bytes
-constexpr float kAmaxFloor = (float)1e-8;
-constexpr float kInv127 = (float)(1.0 / 127.0);
 constexpr float kGeluC = (float)0.7978845608028654;
 constexpr float kGeluA = (float)0.044715;
 
 struct GemmParams {
   const int8_t* x8;           // [M, K]
-  const int8_t* w8;           // [K, ldw]
+  const int8_t* w0;           // [K, ldw]: the weight (gated: the first)
+  const int8_t* w1;           // gated: the second weight, [K, ldw]
   const float* sx;            // [M, K / kb]
-  const float* sw;            // [1, ldw]
+  const void* s0;             // [1, N] column scales of w0, f32 or bf16
+  const void* s1;             // gated: of w1
   const __nv_bfloat16* res;   // [M, N] or null
   __nv_bfloat16* out;         // [M, N]
-  int M, K, N, ldw, kb, act;  // act: 0 gelu_new, 1 relu
+  int M, K, N, ldw, kb, act;  // act: 0 gelu_new, 1 relu, 2 silu
+  int s_bf16;                 // the column scales are bf16 (else f32)
 };
 
-// ---------------------------------------------------------------------------
-// (1) Per-row, per-K-block quantization
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-    quantize_blocks_kernel(const __nv_bfloat16* __restrict__ x,
-                           int8_t* __restrict__ x8, float* __restrict__ sx,
-                           int M, int K, int kb) {
-  const int nk = K / kb;
-  const long long task =
-      (long long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
-  if (task >= (long long)M * nk) return;
-  const int lane = threadIdx.x % 32;
-  const long long row = task / nk;
-  const int b = (int)(task % nk);
-  const __nv_bfloat16* xr = x + row * K + (long long)b * kb;
-  int8_t* qr = x8 + row * K + (long long)b * kb;
-
-  float amax = 0.f;
-  for (int c = lane * 8; c < kb; c += 32 * 8) {
-    const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(__bfloat162float(e[i])));
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  }
-  const float scale = __fmul_rn(fmaxf(amax, kAmaxFloor), kInv127);
-  const float inv = __frcp_rn(scale);
-  for (int c = lane * 8; c < kb; c += 32 * 8) {
-    const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-    uint32_t packed[2] = {0u, 0u};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      int q = __float2int_rn(__fmul_rn(__bfloat162float(e[i]), inv));
-      q = min(127, max(-127, q));
-      packed[i / 4] |= (uint32_t)(q & 0xff) << (8 * (i % 4));
-    }
-    *reinterpret_cast<uint2*>(qr + c) = make_uint2(packed[0], packed[1]);
-  }
-  if (lane == 0) sx[row * nk + b] = scale;
-}
-
-// ---------------------------------------------------------------------------
-// (2) The GEMM
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 16-byte matrices from shared memory, one row address per lane
-// (lanes 8i..8i+7 give matrix i). Thread l receives bytes 4(l%4)..4(l%4)+3
-// of row l/4 of each matrix: for int8 that is the m16n8k32 fragment layout.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const int8_t* row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// A column scale in f32; a bf16 scale widens exactly, so reading the
+// decoder's bf16 leaves in place gives the bits of their f32 copy.
+__device__ __forceinline__ float col_scale(const void* s, int bf16, int col) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(s)[col])
+              : static_cast<const float*>(s)[col];
 }
 
 // The same arithmetic as the plain version's gelu_new, in its order.
@@ -142,9 +94,20 @@ __device__ __forceinline__ float gelu_new(float h) {
   return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.f, t));
 }
 
+// h * sigmoid(h), the sigmoid as 1 / (1 + exp(-h)).
+__device__ __forceinline__ float silu(float h) {
+  return __fmul_rn(h, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-h))));
+}
+
+__device__ __forceinline__ float activate(int act, float h) {
+  if (act == 0) return gelu_new(h);
+  if (act == 1) return fmaxf(h, 0.f);
+  return silu(h);
+}
+
 // Local B-tile column of a warp's accumulator tile j (0..3). Plain: the
-// warp's 32 columns; gated: 16 columns of half 0 (j 0, 1) and the same 16
-// of half 1 (j 2, 3), which sits at local columns 64..127.
+// warp's 32 columns; gated: 16 columns of w0 (j 0, 1) and the same 16 of w1
+// (j 2, 3), which sit at local columns 64..127.
 template <bool GATED>
 __device__ __forceinline__ int tile_col(int wn, int j) {
   if constexpr (GATED) {
@@ -161,8 +124,9 @@ struct Stage {
   uint2 b[4];
 };
 
+// wcol: this thread's eight B columns in row 0 of its weight.
 __device__ __forceinline__ void load_stage(Stage& st, const GemmParams& p, int m0,
-                                           int k0, int tid, int kg, int gcol) {
+                                           int k0, int tid, int kg, const int8_t* wcol) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int idx = tid + i * kThreads;
@@ -174,16 +138,11 @@ __device__ __forceinline__ void load_stage(Stage& st, const GemmParams& p, int m
   }
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    st.b[r] = *reinterpret_cast<const uint2*>(
-        p.w8 + (long long)(k0 + kg * 4 + r) * p.ldw + gcol);
+    st.b[r] = *reinterpret_cast<const uint2*>(wcol + (long long)(k0 + kg * 4 + r) * p.ldw);
   }
 }
 
-// A as it is; B transposed to K-contiguous rows: the four k-rows of each of
-// the thread's eight columns become one 32-bit word (k in byte order). The
-// four lanes that share k-rows (ng % 4 = 0..3) store their columns in an
-// order rotated by 2 * (ng % 4), so each store instruction of a warp writes
-// 32 distinct banks.
+// A as it is; B transposed to K-contiguous rows.
 __device__ __forceinline__ void store_stage(const Stage& st, int8_t* as, int8_t* bs,
                                             int tid, int kg, int ng) {
 #pragma unroll
@@ -191,37 +150,13 @@ __device__ __forceinline__ void store_stage(const Stage& st, int8_t* as, int8_t*
     const int idx = tid + i * kThreads;
     *reinterpret_cast<uint4*>(as + (idx / 4) * kRow + (idx % 4) * 16) = st.a[i];
   }
-  uint32_t cols[8];
+  uint32_t w[4][2];
 #pragma unroll
-  for (int w = 0; w < 2; ++w) {
-    const uint32_t r0 = w ? st.b[0].y : st.b[0].x, r1 = w ? st.b[1].y : st.b[1].x;
-    const uint32_t r2 = w ? st.b[2].y : st.b[2].x, r3 = w ? st.b[3].y : st.b[3].x;
-    const uint32_t lo01 = __byte_perm(r0, r1, 0x5140);
-    const uint32_t hi01 = __byte_perm(r0, r1, 0x7362);
-    const uint32_t lo23 = __byte_perm(r2, r3, 0x5140);
-    const uint32_t hi23 = __byte_perm(r2, r3, 0x7362);
-    cols[w * 4 + 0] = __byte_perm(lo01, lo23, 0x5410);
-    cols[w * 4 + 1] = __byte_perm(lo01, lo23, 0x7632);
-    cols[w * 4 + 2] = __byte_perm(hi01, hi23, 0x5410);
-    cols[w * 4 + 3] = __byte_perm(hi01, hi23, 0x7632);
+  for (int r = 0; r < 4; ++r) {
+    w[r][0] = st.b[r].x;
+    w[r][1] = st.b[r].y;
   }
-  // Rotate by 2 * q: by 4 when q & 2, then by 2 when q & 1. The indices
-  // are constants after unrolling, so the words stay in registers.
-  const int q = ng % 4;
-  uint32_t tmp[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) tmp[c] = cols[c];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) cols[c] = (q & 2) ? tmp[(c + 4) % 8] : tmp[c];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) tmp[c] = cols[c];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) cols[c] = (q & 1) ? tmp[(c + 2) % 8] : tmp[c];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int col = (c + 2 * q) % 8;
-    *reinterpret_cast<uint32_t*>(bs + (ng * 8 + col) * kRow + kg * 4) = cols[c];
-  }
+  store_b_transposed(w, bs, kRow, kg, ng);
 }
 
 template <bool GATED>
@@ -242,9 +177,9 @@ __global__ void __launch_bounds__(kThreads) int8_gemm_kernel(const GemmParams p)
   // ng*8..ng*8+7. Four neighbouring lanes read 32 contiguous bytes of a
   // k-row (one sector); a warp covers 8 k-groups.
   const int kg = (warp % 2) * 8 + lane / 4, ng = (warp / 2) * 4 + lane % 4;
-  int gcol = n0 + ng * 8;
+  const int8_t* wcol = p.w0 + n0 + ng * 8;
   if constexpr (GATED) {
-    if (ng >= 8) gcol = p.N + n0 + (ng - 8) * 8;
+    if (ng >= 8) wcol = p.w1 + n0 + (ng - 8) * 8;
   }
 
   float accf[4][4][4];
@@ -263,12 +198,12 @@ __global__ void __launch_bounds__(kThreads) int8_gemm_kernel(const GemmParams p)
   // is multiplied, and stored to the other buffer after, so its global
   // loads are in flight during the products; one barrier per stage.
   Stage st;
-  load_stage(st, p, m0, 0, tid, kg, gcol);
+  load_stage(st, p, m0, 0, tid, kg, wcol);
   store_stage(st, as[0], bs[0], tid, kg, ng);
   __syncthreads();
   for (int s = 0; s < stages; ++s) {
     const int buf = s & 1;
-    if (s + 1 < stages) load_stage(st, p, m0, (s + 1) * kBK, tid, kg, gcol);
+    if (s + 1 < stages) load_stage(st, p, m0, (s + 1) * kBK, tid, kg, wcol);
 
     // ldmatrix lanes: matrix mi = lane / 8, its row lane % 8.
     const int mi = lane / 8, mr = lane % 8;
@@ -338,12 +273,13 @@ __global__ void __launch_bounds__(kThreads) int8_gemm_kernel(const GemmParams p)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           if constexpr (GATED) {
-            const float h0 = __fmul_rn(accf[i][j][2 * h + e], p.sw[col + e]);
-            const float h1 = __fmul_rn(accf[i][j + 2][2 * h + e], p.sw[p.N + col + e]);
-            const float a = p.act == 0 ? gelu_new(h0) : fmaxf(h0, 0.f);
-            o[e] = __fmul_rn(a, h1);
+            const float h0 =
+                __fmul_rn(accf[i][j][2 * h + e], col_scale(p.s0, p.s_bf16, col + e));
+            const float h1 =
+                __fmul_rn(accf[i][j + 2][2 * h + e], col_scale(p.s1, p.s_bf16, col + e));
+            o[e] = __fmul_rn(activate(p.act, h0), h1);
           } else {
-            o[e] = __fmul_rn(accf[i][j][2 * h + e], p.sw[col + e]);
+            o[e] = __fmul_rn(accf[i][j][2 * h + e], col_scale(p.s0, p.s_bf16, col + e));
             if (p.res != nullptr) {
               o[e] = __fadd_rn(o[e], __bfloat162float(p.res[(long long)row * p.N + col + e]));
             }
@@ -356,17 +292,11 @@ __global__ void __launch_bounds__(kThreads) int8_gemm_kernel(const GemmParams p)
   }
 }
 
-int launch(const __nv_bfloat16* x, const GemmParams& p, int8_t* x8, float* sx,
-           bool gated, cudaStream_t stream) {
-  if (p.M <= 0 || p.K % 128 || p.N % 128 || p.kb % kBK || p.kb <= 0 || p.K % p.kb) {
+int launch_gemm(const GemmParams& p, bool gated, cudaStream_t stream) {
+  if (p.M <= 0 || p.K % 128 || p.N % 128 || p.kb % kBK || p.kb <= 0 || p.K % p.kb ||
+      p.act < 0 || p.act > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long tasks = (long long)p.M * (p.K / p.kb);
-  const int warps = kThreads / 32;
-  quantize_blocks_kernel<<<(unsigned)((tasks + warps - 1) / warps), kThreads, 0, stream>>>(
-      x, x8, sx, p.M, p.K, p.kb);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(p.N / (gated ? kBN / 2 : kBN), (p.M + kBM - 1) / kBM);
   if (gated) {
     int8_gemm_kernel<true><<<grid, kThreads, 0, stream>>>(p);
@@ -376,51 +306,92 @@ int launch(const __nv_bfloat16* x, const GemmParams& p, int8_t* x8, float* sx,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+// The quantize pass, then the GEMM.
+int launch(const __nv_bfloat16* x, const GemmParams& p, int8_t* x8, float* sx,
+           bool gated, cudaStream_t stream) {
+  if (p.M <= 0 || p.K % 128 || p.kb % kBK || p.kb <= 0 || p.K % p.kb) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = launch_quantize(x, x8, sx, nullptr, p.M, p.K, p.kb, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_gemm(p, gated, stream);
+}
 
-// B3: out[M, N] = W8A8(x[M, K] bf16, w8[K, N] int8, sw[1, N] f32) (+ res[M, N]).
-// x8 [M, K] int8 and sx [M, K/kb] f32 are scratch the caller allocates.
-// Returns cudaGetLastError() after the launches (0 on success).
-extern "C" int quantized_matmul_bf16(const void* x, const void* w8, const void* sw,
-                                     const void* res, void* x8, void* sx, void* out,
-                                     int M, int K, int N, int kb, void* stream) {
+GemmParams params(const void* x8, const void* sx, const void* w0, const void* s0,
+                  void* out, int M, int K, int N, int ldw, int kb) {
   GemmParams p;
   p.x8 = static_cast<const int8_t*>(x8);
-  p.w8 = static_cast<const int8_t*>(w8);
+  p.w0 = static_cast<const int8_t*>(w0);
+  p.w1 = nullptr;
   p.sx = static_cast<const float*>(sx);
-  p.sw = static_cast<const float*>(sw);
-  p.res = static_cast<const __nv_bfloat16*>(res);
+  p.s0 = s0;
+  p.s1 = nullptr;
+  p.res = nullptr;
   p.out = static_cast<__nv_bfloat16*>(out);
   p.M = M;
   p.K = K;
   p.N = N;
-  p.ldw = N;
+  p.ldw = ldw;
   p.kb = kb;
   p.act = 0;
+  p.s_bf16 = 0;
+  return p;
+}
+
+}  // namespace
+
+// B3: out[M, N] = W8A8(x[M, K] bf16, w8[K, N] int8, sw[1, N]) (+ res[M, N]),
+// sw f32, or bf16 when sw_bf16 is 1 (the decoder's scale leaves).
+// x8 [M, K] int8 and sx [M, K/kb] f32 are scratch the caller allocates.
+// Returns cudaGetLastError() after the launches (0 on success).
+extern "C" int quantized_matmul_bf16(const void* x, const void* w8, const void* sw,
+                                     const void* res, void* x8, void* sx, void* out,
+                                     int M, int K, int N, int kb, int sw_bf16,
+                                     void* stream) {
+  GemmParams p = params(x8, sx, w8, sw, out, M, K, N, N, kb);
+  p.res = static_cast<const __nv_bfloat16*>(res);
+  p.s_bf16 = sw_bf16;
   return launch(static_cast<const __nv_bfloat16*>(x), p, static_cast<int8_t*>(x8),
                 static_cast<float*>(sx), false, static_cast<cudaStream_t>(stream));
 }
 
 // B4: out[M, N] = act(x @ w0 * s0) * (x @ w1 * s1) over wp[K, 2N] int8 with
 // w0 at columns 0..N-1 and w1 at N..2N-1, scales sp[1, 2N]; act 0 gelu_new,
-// 1 relu. Scratch as for quantized_matmul_bf16.
+// 1 relu, 2 silu. Scratch as for quantized_matmul_bf16.
 extern "C" int gated_matmul_bf16(const void* x, const void* wp, const void* sp,
                                  void* x8, void* sx, void* out, int M, int K, int N,
                                  int kb, int act, void* stream) {
-  if (act != 0 && act != 1) return static_cast<int>(cudaErrorInvalidValue);
-  GemmParams p;
-  p.x8 = static_cast<const int8_t*>(x8);
-  p.w8 = static_cast<const int8_t*>(wp);
-  p.sx = static_cast<const float*>(sx);
-  p.sw = static_cast<const float*>(sp);
-  p.res = nullptr;
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.M = M;
-  p.K = K;
-  p.N = N;
-  p.ldw = 2 * N;
-  p.kb = kb;
+  GemmParams p = params(x8, sx, wp, sp, out, M, K, N, 2 * N, kb);
+  p.w1 = p.w0 + N;
+  p.s1 = static_cast<const float*>(sp) + N;
   p.act = act;
   return launch(static_cast<const __nv_bfloat16*>(x), p, static_cast<int8_t*>(x8),
                 static_cast<float*>(sx), true, static_cast<cudaStream_t>(stream));
+}
+
+// B6: out[M, N] = act(x @ w0 * s0) * (x @ w1 * s1) over two separate int8
+// weights w0, w1 [K, N] with scales s0, s1 [1, N], f32 or, when s_bf16 is 1,
+// bf16 (the decoder's w_gate and w_up, act 2 silu). Scratch as for
+// quantized_matmul_bf16.
+extern "C" int gated_matmul_pair_bf16(const void* x, const void* w0, const void* s0,
+                                      const void* w1, const void* s1, void* x8, void* sx,
+                                      void* out, int M, int K, int N, int kb, int act,
+                                      int s_bf16, void* stream) {
+  GemmParams p = params(x8, sx, w0, s0, out, M, K, N, N, kb);
+  p.w1 = static_cast<const int8_t*>(w1);
+  p.s1 = s1;
+  p.act = act;
+  p.s_bf16 = s_bf16;
+  return launch(static_cast<const __nv_bfloat16*>(x), p, static_cast<int8_t*>(x8),
+                static_cast<float*>(sx), true, static_cast<cudaStream_t>(stream));
+}
+
+// B9: out[M, N] bf16 = (float(x8 @ w8) * sx) * sw on activations the caller
+// quantized: x8 [M, K] int8, sx [M, 1] f32, w8 [K, N] int8, sw [1, N] f32.
+// The GEMM alone, with one K-block of K.
+extern "C" int int8_matmul_bf16(const void* x8, const void* sx, const void* w8,
+                                const void* sw, void* out, int M, int K, int N,
+                                void* stream) {
+  const GemmParams p = params(x8, sx, w8, sw, out, M, K, N, N, K);
+  return launch_gemm(p, false, static_cast<cudaStream_t>(stream));
 }

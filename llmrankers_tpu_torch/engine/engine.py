@@ -14,7 +14,13 @@ program name.
 - ``kind="t5"`` (program ``t5_labels``), in the model's dtype or with
   ``quantize="int8"``: W8A8 weights packed per ``models.quant.T5_PACKS``,
   every large-M site on the int8 kernels (their plain versions on the CPU).
-- ``kind="decoder"``: left-padded rows (``dec_labels``), or, when prompts of
+- ``kind="decoder"``, in the model's dtype or with ``quantize="int8"``
+  (int8 weights and head, W8A8 kernels at the large-M sites) or ``"int4"``
+  (group-wise int4 FFN on the W4A8 kernel, int8 elsewhere); the engine sets
+  ``int8_kernel`` or ``int4_kernel`` on the config as the JAX engine does
+  where its kernels run, so every kernel site launches its kernel on the
+  card and its plain version on the CPU. Left-padded rows (``dec_labels``),
+  or, when prompts of
   a chunk share a long prefix (``engine/prefix.py``), the unique prefixes run
   once and every row gathers its group's K/V (``dec_labels_shared``). With
   ``prefix_cache_mb`` > 0 the prefix K/V is kept across calls in an LRU
@@ -29,6 +35,7 @@ item that ports it. The host modules come from the port's own copies
 from __future__ import annotations
 
 import collections
+import dataclasses
 import sys
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -38,7 +45,8 @@ import torch.nn.functional as F
 
 from ..models.config import DecoderConfig, T5Config
 from ..models.decoder import Decoder
-from ..models.quant import quantize_t5_params
+from ..models.quant import (quantize_decoder_params, quantize_decoder_params_int4,
+                            quantize_t5_params)
 from ..models.t5 import T5
 from ..utils import native
 from . import generate as gen_mod
@@ -74,13 +82,14 @@ class ScoringEngine:
         len_buckets: Sequence[int] = DEFAULT_LEN_BUCKETS,
         batch_buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS,
         max_batch_tokens: int = 2**17,
-        quantize: Optional[str] = None,  # None | 'int8' (T5 weights)
+        quantize: Optional[str] = None,  # None | 'int8' | 'int4' (weights)
         kv_quantize: Optional[str] = None,  # not ported (decoder KV)
         prefix_share: bool = True,  # share prompt-prefix KV (decoder kind)
         # Cross-wave prefix-KV cache budget (decoder kind): unique prompt
         # prefixes' per-layer K/V kept on device across calls, so a sort's
         # successive waves skip the prefix forward. 0 disables.
         prefix_cache_mb: int = 256,
+        awq_calib: Optional[Sequence[str]] = None,  # not ported (AWQ)
     ):
         types = {"t5": (T5Config, T5), "decoder": (DecoderConfig, Decoder)}
         if kind not in types:
@@ -97,22 +106,35 @@ class ScoringEngine:
         if kv_quantize is not None:
             raise NotImplementedError("quantized KV caches are not ported yet "
                                       "(ROADMAP A8)")
+        if awq_calib and quantize is not None:
+            if kind != "decoder":
+                raise ValueError("awq_calib targets decoder models")
+            raise NotImplementedError(
+                "AWQ calibration (awq_calib) is not ported yet (ROADMAP A9 (AWQ))")
         if quantize is not None:
             # The JAX engine's errors (engine.py:155-162).
             if quantize not in ("int8", "int4"):
                 raise ValueError(f"unknown quantize mode {quantize!r}")
-            if kind == "decoder":
-                raise NotImplementedError(
-                    f"quantize={quantize!r} on decoder models is not ported yet "
-                    "(ROADMAP A9)")
-            if quantize == "int4":
+            if quantize == "int4" and kind != "decoder":
                 raise ValueError(
                     "quantize='int4' targets decoder models (T5 scoring"
                     " is compute-bound on the int8 MXU — use 'int8')"
                 )
-            # T5 scoring is compute-bound: int8 weights AND the W8A8
-            # kernels at every site with M = B*L >= 1024 (t5._mm dispatch).
-            model = quantize_t5_params(model, pack=True)
+            if kind == "decoder":
+                # int8: weights and head, the W8A8 kernels at the sites with
+                # M = B*L >= 1024 (the gate pair fused); int4: group-wise int4
+                # FFN sites on the W4A8 kernel at any M, int8 elsewhere.
+                if quantize == "int4":
+                    model = quantize_decoder_params_int4(model)
+                    cfg = dataclasses.replace(cfg, int4_kernel=True)
+                else:
+                    model = quantize_decoder_params(model)
+                    cfg = dataclasses.replace(cfg, int8_kernel=True)
+                model.cfg = cfg
+            else:
+                # T5 scoring is compute-bound: int8 weights AND the W8A8
+                # kernels at every site with M = B*L >= 1024 (t5._mm dispatch).
+                model = quantize_t5_params(model, pack=True)
         self.kind = kind
         self.cfg = cfg
         self.tokenizer = tokenizer

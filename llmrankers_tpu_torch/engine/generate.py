@@ -31,7 +31,7 @@ def prefill_layers(
     """Forward over a token block. Returns (final hidden [B, L, D], k/v
     stacks [Ld, B, KV, L, Dh], positions [B, L])."""
     cfg = model.cfg
-    x = torch.nn.functional.embedding(input_ids, model.embed)
+    x = model.embed_rows(input_ids)
     pos = positions_from_mask(attn_mask)
     if pos_offset is not None:
         pos = pos + pos_offset[:, None]

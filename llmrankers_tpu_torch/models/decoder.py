@@ -9,24 +9,37 @@ RoPE, RMSNorm with fp32 statistics, GQA, SwiGLU; optional qkv bias (Qwen2),
 q/k head norm (Qwen3) and a sliding window (Mistral).
 
 Left-padding aware: positions derive from the attention mask, so a
-left-padded batch scores as its unpadded rows would. The GEMMs are
-``torch.matmul``. Attention goes through :func:`..ops.attention.mha`, which
-runs the hand-written flash kernel (:func:`..ops.flash.flash_mha`, GQA-native,
-its plain version on CPU tensors) when ``use_flash`` is set and Lq >= 128,
-and the plain path otherwise.
+left-padded batch scores as its unpadded rows would. Attention goes through
+:func:`..ops.attention.mha`, which runs the hand-written flash kernel
+(:func:`..ops.flash.flash_mha`, GQA-native, its plain version on CPU tensors)
+when ``use_flash`` is set and Lq >= 128, and the plain path otherwise.
+
+Every matmul site goes through :func:`.quant.qmm` (the FFN through
+:func:`.quant.swiglu_ffn`), so one module holds any quantization state: float
+weights (``torch.matmul``); int8 ``[K, N]`` with ``<name>_scale``; packed
+int4 ``[K/2, N]`` with ``<name>_scale4``; and an int8 head (``embed`` with
+``embed_scale`` [V, 1] when tied, else ``lm_head`` with ``lm_head_scale``
+[1, V]). ``quant`` names the quantized leaves' shapes and dtypes
+(:func:`.quant.decoder_quant_specs`). With ``cfg.qkernels`` the quantized
+sites run the W8A8 and W4A8 kernels by the JAX rule; ``plain_kernels``
+routes them to the kernels' plain versions instead, on any device, to hold
+the kernels against them.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import apply_rope, mha, rms_norm, rope_cos_sin
 from .config import DecoderConfig
+from .quant import SCALE4_SUFFIX, SCALE_SUFFIX, _matmul, embed_rows, qmm, swiglu_ffn
+from ..utils.device import resolve_device
 from .t5 import _empty, _fill
+
+HEAD_LEAVES = ("embed", "embed_scale", "lm_head", "lm_head_scale")
 
 # attend(q [B, H, L, Dh], k [B, KV, L, Dh], v) -> [B, H, L, Dh]
 Attend = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -53,25 +66,43 @@ def _layer_shapes(cfg: DecoderConfig) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
-class Decoder(nn.Module):
-    """A decoder-only LM for scoring: ``forward_hidden``, ``label_logits``."""
+Quant = Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
 
-    def __init__(self, cfg: DecoderConfig, dtype=torch.float32, device="cpu",
-                 use_flash: bool = False):
+
+class Decoder(nn.Module):
+    """A decoder-only LM for scoring: ``forward_hidden``, ``label_logits``.
+
+    Runs on ``device`` (the card unless the caller asks for another; with no
+    GPU the default raises). ``quant``: the quantized leaves, name -> (shape,
+    dtype); every other leaf is float in ``dtype``."""
+
+    def __init__(self, cfg: DecoderConfig, dtype=torch.float32, device="cuda",
+                 use_flash: bool = False, quant: Optional[Quant] = None):
         super().__init__()
+        device = resolve_device(device)
+        quant = dict(quant or {})
         self.cfg = cfg
         self.use_flash = use_flash
-        self.embed = _empty((cfg.vocab_size, cfg.hidden_size), dtype, device)
+        self.plain_kernels = False  # kernel sites call the plain versions
+
+        def leaf(name, shape):
+            shape, dt = quant.get(name, (shape, dtype))
+            return _empty(shape, dt, device)
+
+        D, V = cfg.hidden_size, cfg.vocab_size
+        self.embed = leaf("embed", (V, D))
+        self.embed_scale = leaf("embed_scale", None) if "embed_scale" in quant else None
         shapes = _layer_shapes(cfg)
+        shapes.update({k: s for k, (s, _) in quant.items()
+                       if k.endswith((SCALE_SUFFIX, SCALE4_SUFFIX)) and k not in HEAD_LEAVES})
         self.layers = nn.ModuleList(
-            nn.ParameterDict({k: _empty(s, dtype, device) for k, s in shapes.items()})
+            nn.ParameterDict({k: leaf(k, s) for k, s in shapes.items()})
             for _ in range(cfg.num_hidden_layers)
         )
-        self.final_ln = _empty((cfg.hidden_size,), dtype, device)
-        self.lm_head = (
-            None if cfg.tie_word_embeddings
-            else _empty((cfg.hidden_size, cfg.vocab_size), dtype, device)
-        )
+        self.final_ln = _empty((D,), dtype, device)
+        self.lm_head = None if cfg.tie_word_embeddings else leaf("lm_head", (D, V))
+        self.lm_head_scale = (leaf("lm_head_scale", None) if "lm_head_scale" in quant
+                              else None)
 
     # -- blocks ------------------------------------------------------------
     def rope(self, positions: torch.Tensor, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -86,8 +117,9 @@ class Decoder(nn.Module):
         B, L, _ = h.shape
         H, KV, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
         eps = cfg.rms_norm_eps
+        kern, plain = cfg.qkernels, self.plain_kernels
         hn = rms_norm(h, lp["ln1"], eps)
-        q, k, v = hn @ lp["wq"], hn @ lp["wk"], hn @ lp["wv"]
+        q, k, v = (qmm(lp, name, hn, kern, plain) for name in ("wq", "wk", "wv"))
         if cfg.attention_bias:
             q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
         q = q.view(B, L, H, Dh).transpose(1, 2)
@@ -99,10 +131,13 @@ class Decoder(nn.Module):
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         a = attend(q, k, v).transpose(1, 2).reshape(B, L, H * Dh)
-        h = h + a @ lp["wo"]
+        h = h + qmm(lp, "wo", a, kern, plain)
         hn = rms_norm(h, lp["ln2"], eps)
-        h = h + (F.silu(hn @ lp["w_gate"]) * (hn @ lp["w_up"])) @ lp["w_down"]
+        h = h + swiglu_ffn(lp, hn, kern, plain)
         return h, k, v
+
+    def embed_rows(self, ids: torch.Tensor) -> torch.Tensor:
+        return embed_rows(self, ids)
 
     def attention(self, q, k, v, **kw) -> torch.Tensor:
         """Causal attention at the model's scale, flash when ``use_flash``."""
@@ -115,7 +150,7 @@ class Decoder(nn.Module):
         """Returns (final hidden states [B, L, D], positions [B, L])."""
         cfg = self.cfg
         L = input_ids.shape[1]
-        x = F.embedding(input_ids, self.embed)
+        x = self.embed_rows(input_ids)
         pos = positions_from_mask(attn_mask)
         cos, sin = self.rope(pos, x.dtype)
         # Sliding window: index-space masking is exact here because the
@@ -131,16 +166,28 @@ class Decoder(nn.Module):
         return rms_norm(x, self.final_ln, cfg.rms_norm_eps), pos
 
     def lm_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """Full-vocabulary logits; an int8 head multiplies the int8 bytes in
+        the scale's dtype and applies the per-token scale to the logits."""
         if self.cfg.tie_word_embeddings:
-            return hidden @ self.embed.T
-        return hidden @ self.lm_head
+            w, s = self.embed, self.embed_scale
+            if s is None:
+                return hidden @ w.T
+            return _matmul(hidden, w.T.to(s.dtype)) * s.T
+        w, s = self.lm_head, self.lm_head_scale
+        if s is None:
+            return hidden @ w
+        return _matmul(hidden, w.to(s.dtype)) * s
 
     def label_logits(self, hidden: torch.Tensor, label_ids: torch.Tensor) -> torch.Tensor:
         """Logits of only the given label token ids: a [D, K] product
         instead of the full [D, V] vocabulary projection."""
         if self.cfg.tie_word_embeddings:
-            return hidden @ self.embed[label_ids].T
-        return hidden @ self.lm_head[:, label_ids]
+            return _matmul(hidden, self.embed_rows(label_ids).T)
+        w, s = self.lm_head[:, label_ids], self.lm_head_scale
+        if s is not None:  # dequantized in the product's dtype, as wmat
+            dt = torch.promote_types(hidden.dtype, s.dtype)
+            w = w.to(dt) * s[:, label_ids].to(dt)
+        return _matmul(hidden, w)
 
     def forward(self, input_ids: torch.Tensor, attn_mask: torch.Tensor) -> torch.Tensor:
         """Causal LM forward -> logits [B, L, V]."""
@@ -151,16 +198,34 @@ class Decoder(nn.Module):
 # ---------------------------------------------------------------------------
 # Weights
 # ---------------------------------------------------------------------------
+def _quantized_leaf(name: str, leaf: Any) -> bool:
+    return (np.asarray(leaf).dtype == np.int8
+            or name.endswith((SCALE_SUFFIX, SCALE4_SUFFIX)))
+
+
+def _torch_dtype(leaf: Any) -> torch.dtype:
+    """The torch dtype of a numpy leaf (JAX's bfloat16 included)."""
+    name = np.asarray(leaf).dtype.name
+    return torch.bfloat16 if name == "bfloat16" else getattr(torch, name)
+
+
 @torch.no_grad()
 def params_from_jax(tree: Dict[str, Any], cfg: DecoderConfig, dtype=torch.float32,
-                    device="cpu") -> Decoder:
+                    device="cuda") -> Decoder:
     """The port's module from a ``llmrankers_tpu.models.decoder`` parameter
-    tree (leaves as numpy arrays; per-layer leaves stacked on [L])."""
-    model = Decoder(cfg, dtype=dtype, device=device)
-    _fill(model.embed, tree["embed"], "embed")
-    _fill(model.final_ln, tree["final_ln"], "final_ln")
-    if model.lm_head is not None:
-        _fill(model.lm_head, tree["lm_head"], "lm_head")
+    tree (leaves as numpy arrays; per-layer leaves stacked on [L]). A tree
+    from the JAX ``quantize_decoder_params`` or
+    ``quantize_decoder_params_int4`` loads into a quantized module: its int8
+    and packed int4 leaves and their scales keep their dtype; float leaves
+    take ``dtype``."""
+    quant = {k: (tuple(np.shape(v)), _torch_dtype(v)) for k, v in tree.items()
+             if k in HEAD_LEAVES and _quantized_leaf(k, v)}
+    quant.update({k: (tuple(np.shape(v))[1:], _torch_dtype(v))
+                  for k, v in tree["layers"].items() if _quantized_leaf(k, v)})
+    model = Decoder(cfg, dtype=dtype, device=device, quant=quant)
+    for name in HEAD_LEAVES + ("final_ln",):
+        if getattr(model, name, None) is not None:
+            _fill(getattr(model, name), tree[name], name)
     want = set(model.layers[0].keys())
     if set(tree["layers"]) != want:
         raise ValueError(f"layer leaves {sorted(tree['layers'])} != {sorted(want)}")
@@ -176,10 +241,12 @@ def params_from_jax(tree: Dict[str, Any], cfg: DecoderConfig, dtype=torch.float3
 
 @torch.no_grad()
 def init_params(cfg: DecoderConfig, generator: torch.Generator,
-                dtype=torch.float32, device="cpu") -> Decoder:
+                dtype=torch.float32, device="cuda") -> Decoder:
     """Random init with the JAX ``init_params`` scales (fan-in for the
     projections, 0.02 for the embedding, ones for norms, zeros for qkv
-    biases), drawn on ``device`` from ``generator`` (which must live there)."""
+    biases), drawn on ``device`` from ``generator`` (which must live there).
+    The card unless the caller asks for another device; with no GPU the
+    default raises."""
     model = Decoder(cfg, dtype=dtype, device=device)
 
     def nrm(p: nn.Parameter, scale: float) -> None:

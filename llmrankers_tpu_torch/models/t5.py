@@ -39,6 +39,7 @@ from ..ops.flash import (flash_mha_blhd, flash_mha_blhd_plain, flash_mha_packed,
                          flash_mha_packed_plain)
 from ..ops.int8_matmul import (gated_matmul, gated_matmul_plain, quantized_matmul,
                                quantized_matmul_plain)
+from ..utils.device import resolve_device
 from .config import T5Config
 from .quant import SCALE_SUFFIX, int8_layer_specs
 
@@ -130,11 +131,15 @@ class T5Stack(nn.Module):
 
 
 class T5(nn.Module):
-    """flan-t5 for scoring: ``encode``, ``decode_hidden``, ``label_logits``."""
+    """flan-t5 for scoring: ``encode``, ``decode_hidden``, ``label_logits``.
 
-    def __init__(self, cfg: T5Config, dtype=torch.float32, device="cpu",
+    Runs on ``device``: the card unless the caller asks for another; with no
+    GPU the default raises."""
+
+    def __init__(self, cfg: T5Config, dtype=torch.float32, device="cuda",
                  use_flash: bool = True, quantized: bool = False):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         self.use_flash = use_flash
         self.quantized = quantized
@@ -279,11 +284,12 @@ def _fill(param: nn.Parameter, value: Any, name: str) -> None:
 
 @torch.no_grad()
 def params_from_jax(tree: Dict[str, Any], cfg: T5Config, dtype=torch.float32,
-                    device="cpu") -> T5:
+                    device="cuda") -> T5:
     """The port's module from a ``llmrankers_tpu.models.t5`` parameter tree
-    (leaves as numpy arrays; per-layer leaves stacked on a leading [L] axis).
-    A tree from the JAX ``quantize_t5_params(pack=True)`` loads into a
-    quantized module: int8 leaves and f32 scales as they are."""
+    (leaves as numpy arrays; per-layer leaves stacked on a leading [L] axis),
+    on ``device`` (the card unless the caller asks for another). A tree from
+    the JAX ``quantize_t5_params(pack=True)`` loads into a quantized module:
+    int8 leaves and f32 scales as they are."""
     quantized = any(k.endswith(SCALE_SUFFIX) for k in tree["encoder"]["layers"])
     model = T5(cfg, dtype=dtype, device=device, quantized=quantized)
     _fill(model.shared, tree["shared"], "shared")
@@ -308,9 +314,11 @@ def params_from_jax(tree: Dict[str, Any], cfg: T5Config, dtype=torch.float32,
 
 @torch.no_grad()
 def init_params(cfg: T5Config, generator: torch.Generator,
-                dtype=torch.float32, device="cpu") -> T5:
+                dtype=torch.float32, device="cuda") -> T5:
     """Random init with T5's fan-in scaling (the JAX ``init_params`` scales),
-    drawn on ``device`` from ``generator`` (which must live there too)."""
+    drawn on ``device`` from ``generator`` (which must live there too). The
+    card unless the caller asks for another device; with no GPU the default
+    raises."""
     model = T5(cfg, dtype=dtype, device=device)
     D, I, Fd = cfg.d_model, cfg.num_heads * cfg.d_kv, cfg.d_ff
     scales = {

@@ -80,9 +80,12 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def load_all(names: Sequence[str]) -> List[ctypes.CDLL]:
-    """:func:`load` for every name, the builds running side by side."""
+    """:func:`load` for every name, the builds running side by side. Every
+    build runs to its end before the first failure is raised (``map`` would
+    cancel the builds not yet started when an early one fails)."""
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        return list(pool.map(load, names))
+        futures = [pool.submit(load, name) for name in names]
+    return [f.result() for f in futures]
 
 
 def build_log(name: str) -> str:

@@ -1,21 +1,25 @@
-"""W8A8 int8 GEMMs with in-kernel activation quantization: wrappers, plain
-versions, K-block rule, launch counts.
+"""W8A8 int8 GEMMs: wrappers, plain versions, K-block rule, launch counts.
 
 Counterparts of ``llmrankers_tpu/ops/int8_matmul.py::quantized_matmul``
-(body ``_kernel_fusedq``) and ``::gated_matmul`` (body ``_kernel_gated``).
-Weights are symmetric per-output-channel int8 ``[K, N]`` with f32 ``[1, N]``
-scales; activations are quantized per row and per K-block of ``kblock``
-columns (one scale each), the int8 products are summed exactly in int32
-within a K-block, and each block's sum is folded into an f32 accumulator
-times its row scale. The epilogue multiplies the column scale (and adds a
-residual, or applies ``act(h0) * h1`` over the two halves of a packed gated
-weight).
+(body ``_kernel_fusedq``), ``::gated_matmul`` and ``::gated_matmul_pair``
+(body ``_kernel_gated``), and ``::int8_matmul`` (body ``_kernel``).
+Weights are symmetric per-output-channel int8 ``[K, N]`` with ``[1, N]``
+scales (f32, or the decoder's bf16, taken in f32); activations are quantized
+per row and per K-block of ``kblock`` columns (one scale each), the int8
+products are summed exactly in int32 within a K-block, and each block's sum
+is folded into an f32 accumulator times its row scale. The epilogue
+multiplies the column scale (and adds a residual, or applies
+``act(h0) * h1`` over the two halves of a packed gated weight or over two
+separate weights). ``int8_matmul`` takes
+activations the caller quantized per row (:func:`quantize_rows`) and sums
+over all of K.
 
-On a CUDA tensor :func:`quantized_matmul` and :func:`gated_matmul` launch the
-hand-written kernels of ``csrc/int8_fusedq.cu`` (bf16 x, ``sm_90a``) or
-raise; on a CPU tensor they run the plain versions, which compute the same
-numbers step by step: the same quantized int8 values, exact integer sums
-(taken in float64, exact below 2^53), the same f32 fold order.
+On a CUDA tensor :func:`quantized_matmul`, :func:`gated_matmul`,
+:func:`gated_matmul_pair` and :func:`int8_matmul` launch the hand-written
+kernels of ``csrc/int8_fusedq.cu`` (bf16 x, ``sm_90a``) or raise; on a CPU
+tensor they run the plain versions, which compute the same numbers step by
+step: the same quantized int8 values, exact integer sums (taken in float64,
+exact below 2^53), the same f32 fold order.
 """
 from __future__ import annotations
 
@@ -119,7 +123,7 @@ def _out_dtype(x: torch.Tensor) -> torch.dtype:
 def quantized_matmul_plain(
     x: torch.Tensor,  # [..., K] bf16/f32
     w8: torch.Tensor,  # [K, N] int8
-    sw: torch.Tensor,  # [1, N] f32
+    sw: torch.Tensor,  # [1, N] f32 or bf16
     residual: Optional[torch.Tensor] = None,  # [..., N]
     kblock: Optional[int] = None,
 ) -> torch.Tensor:
@@ -140,6 +144,8 @@ def act_fn(name: str, h: torch.Tensor) -> torch.Tensor:
         return 0.5 * h * (1.0 + torch.tanh(GELU_C * (h + 0.044715 * h * h * h)))
     if name == "relu":
         return torch.clamp_min(h, 0.0)
+    if name == "silu":
+        return h * torch.sigmoid(h)
     raise ValueError(f"unknown activation {name!r}")
 
 
@@ -162,20 +168,70 @@ def gated_matmul_plain(
     return (act_fn(act, h0) * h1).to(_out_dtype(x)).reshape(*x.shape[:-1], N)
 
 
+def gated_matmul_pair_plain(
+    x: torch.Tensor,  # [..., K]
+    w0: torch.Tensor,  # [K, N] int8 (gate)
+    s0: torch.Tensor,  # [1, N]
+    w1: torch.Tensor,  # [K, N] int8 (up)
+    s1: torch.Tensor,  # [1, N]
+    act: str = "silu",
+) -> torch.Tensor:
+    """``act(x @ w0) * (x @ w1)`` over two separate int8 weights in plain
+    PyTorch, ``[..., N]`` in x's dtype. The TPU kernel's K-block is that of
+    the packed gated kernel with N the width of one weight."""
+    K, N = w0.shape
+    kb = kblock(K, N, x.dtype, gated=True)
+    q, scale = quantize_blocks(x.reshape(-1, K), kb)
+    h0 = _fold(q, scale, w0) * s0.float().reshape(1, N)
+    h1 = _fold(q, scale, w1) * s1.float().reshape(1, N)
+    return (act_fn(act, h0) * h1).to(_out_dtype(x)).reshape(*x.shape[:-1], N)
+
+
+def quantize_rows(x: torch.Tensor):
+    """Per-row symmetric int8 quantization of ``[M, K]`` x, as the JAX
+    ``quantize_rows`` writes it (a division, where the kernels multiply by a
+    reciprocal): ``scale = max(amax, 1e-8) / 127``, ``clip(round(x /
+    scale), -127, 127)``. Returns (int8 ``[M, K]``, f32 scales ``[M, 1]``)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
+
+
+def int8_matmul_plain(
+    x8: torch.Tensor,  # [M, K] int8
+    sx: torch.Tensor,  # [M, 1] f32
+    w8: torch.Tensor,  # [K, N] int8
+    sw: torch.Tensor,  # [1, N] f32
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """``(float(x8 @ w8) * sx) * sw`` in plain PyTorch: the int32 sum over all
+    of K (exact in float64), converted to f32 once."""
+    acc = (x8.double() @ w8.double()).float()
+    return (acc * sx.float() * sw.float()).to(out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
-_ACTS = {"gelu_new": 0, "relu": 1}
+_ACTS = {"gelu_new": 0, "relu": 1, "silu": 2}
+
+
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# The C entries of csrc/int8_fusedq.cu: pointers, then ints, then the stream.
+ENTRIES = {
+    "quantized_matmul_bf16": [_PTR] * 7 + [_I32] * 5 + [_PTR],
+    "gated_matmul_bf16": [_PTR] * 6 + [_I32] * 5 + [_PTR],
+    "gated_matmul_pair_bf16": [_PTR] * 8 + [_I32] * 6 + [_PTR],
+    "int8_matmul_bf16": [_PTR] * 5 + [_I32] * 3 + [_PTR],
+}
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("int8_fusedq")
     if lib.quantized_matmul_bf16.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.quantized_matmul_bf16.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
-        lib.quantized_matmul_bf16.restype = i32
-        lib.gated_matmul_bf16.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-        lib.gated_matmul_bf16.restype = i32
+        for name, argtypes in ENTRIES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, _I32
     return lib
 
 
@@ -187,6 +243,14 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> Non
                          f"{list(t.shape)} on {t.device}")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: base pointer must be 16-byte aligned")
+
+
+def _check_scale(name: str, s: torch.Tensor, N: int, device) -> int:
+    """A ``[1, N]`` column scale the kernel reads in place: f32, or bf16 (the
+    decoder's leaves, widened exactly in the epilogue). Returns 1 for bf16."""
+    bf16 = int(s.dtype == torch.bfloat16)
+    _check(name, s, torch.bfloat16 if bf16 else torch.float32, (1, N), device)
+    return bf16
 
 
 def _check_x(fn: str, x: torch.Tensor, K: int, N: int) -> torch.Tensor:
@@ -212,7 +276,7 @@ def _scratch(x2: torch.Tensor, kb: int):
 def quantized_matmul(
     x: torch.Tensor,  # [..., K] bf16 (f32 on the CPU)
     w8: torch.Tensor,  # [K, N] int8
-    sw: torch.Tensor,  # [1, N] f32
+    sw: torch.Tensor,  # [1, N] f32 or bf16
     residual: Optional[torch.Tensor] = None,  # [..., N]
 ) -> torch.Tensor:
     """Dynamic-activation W8A8 ``x @ (w8 * sw) (+ residual)`` over any
@@ -236,7 +300,7 @@ def quantized_matmul(
             raise ValueError("residual: the kernel takes a contiguous tensor")
         res2 = residual.reshape(M, N)
     _check("w8", w8, torch.int8, (K, N), x.device)
-    _check("sw", sw, torch.float32, (1, N), x.device)
+    sw_bf16 = _check_scale("sw", sw, N, x.device)
     if res2 is not None:
         _check("residual", res2, torch.bfloat16, (M, N), x.device)
     kb = kblock(K, N, x.dtype, residual is not None)
@@ -250,7 +314,7 @@ def quantized_matmul(
         rc = lib.quantized_matmul_bf16(
             x2.data_ptr(), w8.data_ptr(), sw.data_ptr(),
             None if res2 is None else res2.data_ptr(),
-            x8.data_ptr(), sx.data_ptr(), out.data_ptr(), M, K, N, kb, stream)
+            x8.data_ptr(), sx.data_ptr(), out.data_ptr(), M, K, N, kb, sw_bf16, stream)
     if rc != 0:
         raise RuntimeError(f"int8_fusedq quantized_matmul launch failed: CUDA error {rc}")
     quantized_matmul.launches += 1
@@ -300,3 +364,95 @@ def gated_matmul(
 
 
 gated_matmul.launches = 0
+
+
+def gated_matmul_pair(
+    x: torch.Tensor,  # [..., K]
+    w0: torch.Tensor,  # [K, N] int8 (gate)
+    s0: torch.Tensor,  # [1, N] f32 or bf16
+    w1: torch.Tensor,  # [K, N] int8 (up)
+    s1: torch.Tensor,  # [1, N], s0's dtype
+    act: str = "silu",
+) -> torch.Tensor:
+    """``act(x @ w0) * (x @ w1)`` over two separate int8 weights (the
+    decoder's SwiGLU gate and up), any leading dims. CPU tensors take
+    :func:`gated_matmul_pair_plain`; CUDA tensors launch the gated kernel of
+    ``csrc/int8_fusedq.cu`` on the two weights in place (no packed copy; the
+    ``[M, N]`` intermediates are never written) and add one to
+    ``gated_matmul_pair.launches``, under the checks of
+    :func:`quantized_matmul`."""
+    if act not in _ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    if x.device.type == "cpu":
+        return gated_matmul_pair_plain(x, w0, s0, w1, s1, act)
+    lead, K = x.shape[:-1], x.shape[-1]
+    N = w0.shape[1]
+    x2 = _check_x("gated_matmul_pair", x, K, N)
+    M = x2.shape[0]
+    for name, w in (("w0", w0), ("w1", w1)):
+        _check(name, w, torch.int8, (K, N), x.device)
+    s_bf16 = _check_scale("s0", s0, N, x.device)
+    _check("s1", s1, s0.dtype, (1, N), x.device)
+    kb = kblock(K, N, x.dtype, gated=True)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M == 0:
+        return out.reshape(*lead, N)
+    x8, sx = _scratch(x2, kb)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.gated_matmul_pair_bf16(
+            x2.data_ptr(), w0.data_ptr(), s0.data_ptr(), w1.data_ptr(), s1.data_ptr(),
+            x8.data_ptr(), sx.data_ptr(), out.data_ptr(), M, K, N, kb, _ACTS[act], s_bf16,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"int8_fusedq gated_matmul_pair launch failed: CUDA error {rc}")
+    gated_matmul_pair.launches += 1
+    return out.reshape(*lead, N)
+
+
+gated_matmul_pair.launches = 0
+
+
+def int8_matmul(
+    x8: torch.Tensor,  # [M, K] int8
+    sx: torch.Tensor,  # [M, 1] f32 row scales
+    w8: torch.Tensor,  # [K, N] int8
+    sw: torch.Tensor,  # [1, N] f32 column scales
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """W8A8 on activations already quantized (:func:`quantize_rows`):
+    ``(float(x8 @ w8) * sx) * sw``, ``[M, N]`` in ``out_dtype``. CPU tensors
+    take :func:`int8_matmul_plain`; CUDA tensors launch the GEMM of
+    ``csrc/int8_fusedq.cu`` with one K-block of K (bf16 output only) and add
+    one to ``int8_matmul.launches``. The JAX package has no caller of it on
+    its serving paths."""
+    if x8.device.type == "cpu":
+        return int8_matmul_plain(x8, sx, w8, sw, out_dtype)
+    M, K = x8.shape
+    N = w8.shape[1]
+    if x8.device.type != "cuda":
+        raise ValueError(f"int8_matmul: no kernel for device {x8.device}")
+    if out_dtype != torch.bfloat16:
+        raise ValueError(f"int8_matmul: the kernel writes bfloat16, not {out_dtype}")
+    if K % 128 or N % 128:
+        raise ValueError(f"int8_matmul: K and N must be multiples of 128, got {K}x{N}")
+    _check("x8", x8, torch.int8, (M, K), x8.device)
+    _check("sx", sx, torch.float32, (M, 1), x8.device)
+    _check("w8", w8, torch.int8, (K, N), x8.device)
+    _check("sw", sw, torch.float32, (1, N), x8.device)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x8.device)
+    if M == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(x8.device):
+        stream = torch.cuda.current_stream(x8.device).cuda_stream
+        rc = lib.int8_matmul_bf16(x8.data_ptr(), sx.data_ptr(), w8.data_ptr(), sw.data_ptr(),
+                                  out.data_ptr(), M, K, N, stream)
+    if rc != 0:
+        raise RuntimeError(f"int8_fusedq int8_matmul launch failed: CUDA error {rc}")
+    int8_matmul.launches += 1
+    return out
+
+
+int8_matmul.launches = 0

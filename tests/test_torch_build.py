@@ -6,7 +6,7 @@ import stat
 
 import pytest
 
-from llmrankers_tpu_torch.ops import _build
+from llmrankers_tpu_torch.ops import _build, int8_matmul
 
 
 @pytest.fixture
@@ -43,15 +43,57 @@ def test_build_key_follows_sources_and_flags(monkeypatch):
     assert os.path.exists(os.path.join(_build.CSRC_DIR, "flash_blhd.cu"))
 
 
+def _source(*names):
+    text = ""
+    for name in names:
+        with open(os.path.join(_build.CSRC_DIR, name)) as f:
+            text += f.read()
+    return text
+
+
 def test_int8_source_has_its_entry_points():
-    """The W8A8 kernels are one hand-written source with two C entry points
-    on int8 tensor-core tiles."""
-    with open(os.path.join(_build.CSRC_DIR, "int8_fusedq.cu")) as f:
-        src = f.read()
-    for entry in ("quantized_matmul_bf16", "gated_matmul_bf16"):
+    """The W8A8 kernels are one hand-written source with four C entry points
+    (B3, B4, B6, B9) on int8 tensor-core tiles from the shared header."""
+    src = _source("int8_fusedq.cu")
+    for entry in ("quantized_matmul_bf16", "gated_matmul_bf16", "gated_matmul_pair_bf16",
+                  "int8_matmul_bf16"):
         assert f'extern "C" int {entry}(' in src
-    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in src
-    assert "cublas" not in src.lower()
+    assert '#include "int8_mma.cuh"' in src
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in _source("int8_mma.cuh")
+    assert "cublas" not in (src + _source("int8_mma.cuh")).lower()
+
+
+@pytest.mark.parametrize("entry", sorted(int8_matmul.ENTRIES))
+def test_int8_wrapper_argtypes_match_the_c_entries(entry):
+    """The ctypes argument list of each W8A8 entry (pointers, ints, stream)
+    matches its ``extern "C"`` signature, type for type."""
+    src = _source("int8_fusedq.cu")
+    sig = src.split(f'extern "C" int {entry}(')[1].split(")")[0]
+    params = [" ".join(p.split()) for p in sig.split(",")]
+    want = [int8_matmul.ctypes.c_void_p if "*" in p else int8_matmul.ctypes.c_int
+            for p in params]
+    assert all("*" in p or p.startswith("int ") for p in params), params
+    assert int8_matmul.ENTRIES[entry] == want
+
+
+def test_int4_source_has_its_entry_point():
+    """B7 is its own hand-written source on the same int8 tensor-core tiles:
+    the quantize pass with the zero-point sums, then the two nibble planes."""
+    src = _source("int4_w4a8.cu")
+    assert 'extern "C" int quantized_matmul_int4_bf16(' in src
+    assert '#include "int8_mma.cuh"' in src
+    assert "0x0F0F0F0Fu" in src and "0xF0F0F0F0u" in src and "0.0625f" in src
+    assert "cublas" not in src.lower() and "_int_mm" not in src
+
+
+def test_build_key_follows_the_shared_header(tmp_path, monkeypatch):
+    """A change to a header the sources include rebuilds them."""
+    for name in os.listdir(_build.CSRC_DIR):
+        (tmp_path / name).write_bytes(open(os.path.join(_build.CSRC_DIR, name), "rb").read())
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    key = _build._digest()
+    (tmp_path / "int8_mma.cuh").write_text("// changed\n")
+    assert _build._digest() != key
 
 
 def test_load_all_builds_each_source_and_raises(fresh_build, monkeypatch):

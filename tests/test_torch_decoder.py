@@ -75,7 +75,7 @@ def _left_padded(B, L, seed, lens=None):
 def _models(name, seed=0):
     jcfg, tcfg = _configs(name)
     tree = _tree(jcfg, seed)
-    return jcfg, tcfg, tree, tdec.params_from_jax(tree, tcfg)
+    return jcfg, tcfg, tree, tdec.params_from_jax(tree, tcfg, device="cpu")
 
 
 def _jtree(tree):
@@ -238,7 +238,7 @@ def test_rope_and_positions_match_jax():
 def test_init_params_scales():
     cfg = dataclasses.replace(DecoderConfig.tiny(attention_bias=True, qk_norm=True),
                               hidden_size=256, intermediate_size=512)
-    model = tdec.init_params(cfg, torch.Generator().manual_seed(0))
+    model = tdec.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     lp = model.layers[0]
     assert torch.all(lp["ln1"] == 1) and torch.all(lp["q_norm"] == 1)
     assert torch.all(lp["bq"] == 0)

@@ -47,7 +47,7 @@ def engines():
     jeng = JaxEngine("t5", cfg, jax.tree.map(jax.numpy.asarray, tree),
                      JaxByteTokenizer(cfg.vocab_size), **LADDERS)
     tcfg = _torch_cfg(cfg)
-    teng_ = teng.ScoringEngine("t5", tcfg, tt5.params_from_jax(tree, tcfg),
+    teng_ = teng.ScoringEngine("t5", tcfg, tt5.params_from_jax(tree, tcfg, device="cpu"),
                                ByteTokenizer(cfg.vocab_size), **LADDERS)
     return jeng, teng_
 
@@ -100,10 +100,13 @@ def test_unported_paths_raise(engines):
         teng_.sequence_nll([[5, 6]], [[7]])
     with pytest.raises(NotImplementedError, match="A10"):
         teng_.score_labels([[5, 6]], [67], adapter="lora")
-    # The decoder kind is ported; its int8/int4 weights are not.
+    # The decoder kind and its int8/int4 weights are ported; AWQ is not.
     dcfg = TorchDecoderConfig.tiny()
-    dec = tdec.init_params(dcfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="A9"):
-        teng.ScoringEngine("decoder", dcfg, dec, teng_.tokenizer, quantize="int8")
+    dec = tdec.init_params(dcfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match="A9 \\(AWQ\\)"):
+        teng.ScoringEngine("decoder", dcfg, dec, teng_.tokenizer, quantize="int8",
+                           awq_calib=["a prompt"])
+    assert teng.ScoringEngine("decoder", dcfg, dec, teng_.tokenizer,
+                              quantize="int8").cfg.int8_kernel
     with pytest.raises(TypeError, match="T5Config"):
         teng.ScoringEngine("t5", dcfg, dec, teng_.tokenizer)

@@ -41,9 +41,11 @@ PORT_MODULES = [
     "llmrankers_tpu_torch.algos.scheduler", "llmrankers_tpu_torch.algos.setwise_sort",
     "llmrankers_tpu_torch.data.docstore", "llmrankers_tpu_torch.data.trec",
     "llmrankers_tpu_torch.utils.metering", "llmrankers_tpu_torch.utils.native",
+    "llmrankers_tpu_torch.utils.device",
     "llmrankers_tpu_torch.ops._build",
     "llmrankers_tpu_torch.ops.attention", "llmrankers_tpu_torch.ops.flash",
-    "llmrankers_tpu_torch.ops.int8_matmul", "llmrankers_tpu_torch.models.config",
+    "llmrankers_tpu_torch.ops.int8_matmul", "llmrankers_tpu_torch.ops.int4_matmul",
+    "llmrankers_tpu_torch.models.config",
     "llmrankers_tpu_torch.models.decoder", "llmrankers_tpu_torch.models.quant",
     "llmrankers_tpu_torch.models.t5", "llmrankers_tpu_torch.engine.engine",
     "llmrankers_tpu_torch.engine.generate", "llmrankers_tpu_torch.engine.parity",

@@ -64,7 +64,7 @@ def _engines(trees, window=None, **kw):
     tree = trees[window]
     jeng = JaxEngine("decoder", jcfg, jax.tree.map(jax.numpy.asarray, tree),
                      JaxByteTokenizer(jcfg.vocab_size), **LADDERS, **kw)
-    teng = ScoringEngine("decoder", tcfg, tdec.params_from_jax(tree, tcfg),
+    teng = ScoringEngine("decoder", tcfg, tdec.params_from_jax(tree, tcfg, device="cpu"),
                          ByteTokenizer(tcfg.vocab_size), **LADDERS, **kw)
     return jeng, teng
 
@@ -185,9 +185,10 @@ def test_group_shared_prefixes_matches_jax(seed):
 
 def test_decoder_engine_unported_options_raise(trees):
     tcfg = DecoderConfig.tiny(attention_bias=True)
-    model = tdec.params_from_jax(trees[None], tcfg)
+    model = tdec.params_from_jax(trees[None], tcfg, device="cpu")
     tok = ByteTokenizer(tcfg.vocab_size)
-    for kw, item in ((dict(quantize="int8"), "A9"), (dict(quantize="int4"), "A9"),
+    for kw, item in ((dict(quantize="int8", awq_calib=["p"]), "A9 \\(AWQ\\)"),
+                     (dict(quantize="int4", awq_calib=["p"]), "A9 \\(AWQ\\)"),
                      (dict(kv_quantize="int8"), "A8")):
         with pytest.raises(NotImplementedError, match=item):
             ScoringEngine("decoder", tcfg, model, tok, **kw)

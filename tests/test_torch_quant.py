@@ -78,7 +78,7 @@ def test_quantize_t5_params_matches_jax(variant):
     tree = _tree(cfg, dtype=jdt)
     want = jax.tree.map(np.asarray, jquant.quantize_t5_params(
         jax.tree.map(jnp.asarray, tree), pack=True))
-    model = tt5.params_from_jax(tree, _torch_cfg(cfg), dtype=tdt)
+    model = tt5.params_from_jax(tree, _torch_cfg(cfg), dtype=tdt, device="cpu")
     got = tquant.quantize_t5_params(model, pack=True)
     assert got.quantized and not model.quantized
     for block in ("encoder", "decoder"):
@@ -102,13 +102,13 @@ def test_quantize_t5_params_matches_jax(variant):
         assert "qkv" in got.encoder.layers[0] and "ckv" in got.decoder.layers[0]
         assert got.encoder.layers[0]["wi_g"].shape == (128, 512)  # [K, N] layout
     # the JAX tree itself loads into the same module
-    loaded = tt5.params_from_jax(want, _torch_cfg(cfg), dtype=tdt)
+    loaded = tt5.params_from_jax(want, _torch_cfg(cfg), dtype=tdt, device="cpu")
     for a, b in zip(loaded.state_dict().values(), got.state_dict().values()):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def test_pack_false_is_not_ported():
-    model = tt5.params_from_jax(_tree(CFG128), _torch_cfg(CFG128))
+    model = tt5.params_from_jax(_tree(CFG128), _torch_cfg(CFG128), device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
         tquant.quantize_t5_params(model, pack=False)
 
@@ -129,7 +129,7 @@ def test_int8_forward_matches_jax(kernel):
     ids, mask, dec = (a if kernel else a[:32] for a in _batch(cfg))
     want = np.asarray(jt5.forward(qtree, dataclasses.replace(cfg, int8_kernel=kernel),
                                   jnp.asarray(ids), jnp.asarray(mask), jnp.asarray(dec)))
-    model = tquant.quantize_t5_params(tt5.params_from_jax(tree, _torch_cfg(cfg)))
+    model = tquant.quantize_t5_params(tt5.params_from_jax(tree, _torch_cfg(cfg), device="cpu"))
     with torch.inference_mode():
         got = model(*map(torch.from_numpy, (ids, mask, dec))).numpy()
     assert (got[:, -1].argmax(-1) == want[:, -1].argmax(-1)).all()
@@ -150,7 +150,7 @@ def test_int8_forward_routes_large_m_to_the_kernels(monkeypatch):
             calls.append((_n, tuple(a[0].shape), tuple(a[1].shape)
                           if _n != "flash_mha_packed" else ())), _f(*a, **k))[1])
     model = tquant.quantize_t5_params(
-        tt5.params_from_jax(_tree(CFG128), _torch_cfg(CFG128)))
+        tt5.params_from_jax(_tree(CFG128), _torch_cfg(CFG128), device="cpu"))
     ids, mask, dec = _batch(CFG128)
     with torch.inference_mode():
         model(*map(torch.from_numpy, (ids, mask, dec)))
@@ -188,7 +188,7 @@ def test_setwise_int8_orders_match_jax(monkeypatch):
                      JaxByteTokenizer(cfg.vocab_size), quantize="int8", **LADDERS)
     assert jeng.cfg.int8_kernel and "qkv" in jeng.params["encoder"]["layers"]
     tcfg = _torch_cfg(cfg)
-    teng = ScoringEngine("t5", tcfg, tt5.params_from_jax(tree, tcfg),
+    teng = ScoringEngine("t5", tcfg, tt5.params_from_jax(tree, tcfg, device="cpu"),
                          ByteTokenizer(cfg.vocab_size), quantize="int8", **LADDERS)
     assert teng.model.quantized
     kw = dict(num_child=2, k=4, scoring="likelihood", method="heapsort")
@@ -208,7 +208,7 @@ def test_setwise_int8_orders_match_jax(monkeypatch):
 
 def test_engine_quantize_errors():
     cfg = T5Config.tiny()
-    model = tt5.params_from_jax(_tree(cfg), _torch_cfg(cfg))
+    model = tt5.params_from_jax(_tree(cfg), _torch_cfg(cfg), device="cpu")
     tok = ByteTokenizer(cfg.vocab_size)
     with pytest.raises(ValueError, match="int4.*decoder models"):
         ScoringEngine("t5", _torch_cfg(cfg), model, tok, quantize="int4")
@@ -222,7 +222,7 @@ def test_decision_parity_battery():
     tok = ByteTokenizer(CFG128.vocab_size)
     rows = parity.battery_rows(tok, 16)
     assert len(rows) == 16 and all(512 < len(r) <= 640 for r in rows)
-    model = tt5.params_from_jax(_tree(CFG128), _torch_cfg(CFG128))
+    model = tt5.params_from_jax(_tree(CFG128), _torch_cfg(CFG128), device="cpu")
     res = parity.t5_int8_decision_parity(model, n_prompts=16)
     assert res["prompts"] == 16
     assert 0.0 <= res["winner_agreement"] <= 1.0

@@ -57,7 +57,7 @@ def engines():
     jeng = JaxEngine("t5", cfg, jax.tree.map(jax.numpy.asarray, tree),
                      JaxByteTokenizer(cfg.vocab_size), **LADDERS)
     tcfg = _torch_cfg(cfg)
-    teng = ScoringEngine("t5", tcfg, tt5.params_from_jax(tree, tcfg),
+    teng = ScoringEngine("t5", tcfg, tt5.params_from_jax(tree, tcfg, device="cpu"),
                          ByteTokenizer(cfg.vocab_size), **LADDERS)
     return jeng, teng
 
@@ -238,7 +238,7 @@ def dec_engines():
     tree = jax.tree.map(np.asarray, jdec.init_params(jcfg, jax.random.PRNGKey(5)))
     jeng = JaxEngine("decoder", jcfg, jax.tree.map(jax.numpy.asarray, tree),
                      JaxByteTokenizer(jcfg.vocab_size), **LADDERS)
-    teng = ScoringEngine("decoder", tcfg, tdec.params_from_jax(tree, tcfg),
+    teng = ScoringEngine("decoder", tcfg, tdec.params_from_jax(tree, tcfg, device="cpu"),
                          ByteTokenizer(tcfg.vocab_size), **LADDERS)
     return jeng, teng
 

@@ -46,7 +46,7 @@ def _cfg(variant):
 def _models(variant):
     cfg = _cfg(variant)
     tree = jax.tree.map(np.asarray, jt5.init_params(cfg, jax.random.PRNGKey(0)))
-    return cfg, tree, tt5.params_from_jax(tree, _torch_cfg(cfg))
+    return cfg, tree, tt5.params_from_jax(tree, _torch_cfg(cfg), device="cpu")
 
 
 def _batch(cfg, seed=0):
@@ -110,7 +110,7 @@ def test_params_from_jax_rejects_wrong_shapes():
     cfg, tree, _ = _models("flan")
     tree["encoder"]["layers"]["q"] = tree["encoder"]["layers"]["q"][:, :, :8]
     with pytest.raises(ValueError, match="encoder.q"):
-        tt5.params_from_jax(tree, _torch_cfg(cfg))
+        tt5.params_from_jax(tree, _torch_cfg(cfg), device="cpu")
 
 
 def test_init_params_layout_and_scales():
@@ -119,7 +119,7 @@ def test_init_params_layout_and_scales():
     cfg, tree, _ = _models("flan")
 
     def make(seed):
-        return tt5.init_params(_torch_cfg(cfg), torch.Generator().manual_seed(seed))
+        return tt5.init_params(_torch_cfg(cfg), torch.Generator().manual_seed(seed), device="cpu")
 
     a, b, c = make(0), make(0), make(1)
     lp = a.encoder.layers[0]
