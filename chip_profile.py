@@ -7,6 +7,7 @@ Run from the root of a checkout:
     python3 chip_profile.py --quantize int8      # W8A8 int8 flan-t5-xl
     python3 chip_profile.py --model qwen2.5-3b   # bf16 Qwen2.5-3B, decoder-only
     python3 chip_profile.py --model qwen2.5-3b --quantize int8   # or int4
+    python3 chip_profile.py --decode             # Qwen2.5-3B generation
 
 It runs ``chip_smoke.py``'s end-to-end configuration (random-init weights at
 full width, 4 synthetic queries x 100 passages of 128 tokens, setwise
@@ -39,6 +40,17 @@ process:
    that as a share of the H100 SXM data sheet's dense bf16 peak of 989
    TFLOP/s (rated at a 700 W power limit).
 
+With ``--decode`` it measures generation instead: ``ScoringEngine.generate``
+on Qwen2.5-3B at ``chip_smoke.py``'s generate shape (batch 8, a shared
+1200-token prefix and 640-token suffixes, 128 new tokens greedy in chunks of
+64 with the stop string "</answer>", which random weights never write), for
+each weight and KV mode (bf16 weights with bf16, int8 and int4 KV; int8 and
+int4 weights with int4 KV): prefill plus one step and the whole budget timed
+in turns (1, 128, 128, 1 tokens), so the decode's ms per step is the
+difference over 127 steps; the 128-token run with every kernel site on its
+plain version, once between the kernel runs; and one profiled 128-token run
+(busy share and device time by kernel family, B8 included).
+
 It prints the card's name and power limit first and one JSON line of the
 numbers last. Without a CUDA GPU it exits with an error.
 """
@@ -63,6 +75,7 @@ from llmrankers_tpu_torch.ops import int4_matmul, int8_matmul
 
 H100_BF16_PEAK_TFLOPS = 989.0  # NVIDIA H100 SXM data sheet, dense, 700 W
 FAMILIES = (  # first match wins, on the lower-cased kernel name
+    ("kvq decode (B8)", ("kvq_",)),
     ("flash", ("flash_blhd",)),
     ("int8 gated gemm (B4/B6)", ("int8_gemm_kernel<true>",)),
     ("int8 gemm (B3)", ("int8_gemm",)),
@@ -158,11 +171,94 @@ def site_times(ms=(1024, 20480), rounds=6):
     return out
 
 
+def _profile(fn):
+    """Run ``fn`` under torch.profiler, tracing the device only (a decode
+    run launches some 10^5 kernels; tracing the host's ops too costs
+    minutes): (wall s, device kernel s, busy share, ms by kernel family,
+    the top kernels)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+    rows = _device_times(prof)
+    total_us = sum(us for _, us, _ in rows)
+    if total_us == 0:
+        raise RuntimeError("the profiler recorded no device time")
+    by_family = {}
+    for name, us, _ in rows:
+        by_family[_family(name)] = by_family.get(_family(name), 0.0) + us / 1e3
+    return wall, total_us / 1e6, total_us / 1e6 / wall, by_family, rows[:8]
+
+
+DECODE_MODES = ((None, None), (None, "int8"), (None, "int4"), ("int8", "int4"),
+                ("int4", "int4"))
+
+
+def decode_main():
+    """Generation on Qwen2.5-3B for every weight and KV mode (module
+    docstring)."""
+    cfg = DecoderConfig.qwen25_3b()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = decoder.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    rows, new = smoke._gen_rows(), smoke.GEN_NEW
+    out = {"device": torch.cuda.get_device_name(0), "batch": len(rows),
+           "prompt_tokens": len(rows[0]), "new_tokens": new, "modes": {}}
+    for quantize, kvq in DECODE_MODES:
+        engine = ScoringEngine("decoder", cfg, model, ByteTokenizer(cfg.vocab_size),
+                               quantize=quantize, kv_quantize=kvq)
+        label = f"{quantize or 'bf16'} weights, {kvq or 'bf16'} KV"
+
+        def run(n):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            engine.generate(rows, max_new_tokens=n, chunk_tokens=new // 2,
+                            stop_strings=("</answer>",))
+            torch.cuda.synchronize()
+            return time.perf_counter() - tic
+
+        run(8)  # warm-up
+        walls = {1: [], new: []}
+        for n in (1, new, new, 1):
+            walls[n].append(run(n))
+        engine.model.plain_kernels = True
+        plain = run(new)
+        engine.model.plain_kernels = False
+        step_ms = (statistics.mean(walls[new]) - statistics.mean(walls[1])) / (new - 1) * 1e3
+        pwall, dev_s, busy, fam, top = _profile(lambda: run(new))
+        print(f"{label}: walls 1 token {walls[1][0]:.4f}/{walls[1][1]:.4f} s, {new} tokens "
+              f"{walls[new][0]:.4f}/{walls[new][1]:.4f} s, {new} on the plain versions "
+              f"{plain:.4f} s; decode {step_ms:.3f} ms/step = "
+              f"{len(rows) * 1e3 / step_ms:.1f} tokens/s; profiled {new}-token run: wall "
+              f"{pwall:.4f} s, device kernel time {dev_s:.4f} s, busy share {busy:.4f}")
+        for family, ms in sorted(fam.items(), key=lambda x: -x[1]):
+            print(f"  {family:16s} {ms:10.1f} ms {100 * ms / (dev_s * 1e3):6.1f}%")
+        for name, us, count in top:
+            print(f"  {us / 1e3:9.1f} ms  n={count:6d}  {name[:100]}")
+        out["modes"][label] = {
+            "wall_1_s": walls[1], "wall_new_s": walls[new], "wall_new_plain_s": plain,
+            "decode_ms_per_step": step_ms, "decode_tokens_per_s": len(rows) * 1e3 / step_ms,
+            "profiled_wall_s": pwall, "device_kernel_s": dev_s, "busy_share_profiled": busy,
+            "family_ms": fam}
+        del engine
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--quantize", choices=("int8", "int4"), default=None)
     parser.add_argument("--model", choices=("t5", "qwen2.5-3b"), default="t5")
+    parser.add_argument("--decode", action="store_true",
+                        help="Qwen2.5-3B generation in every weight and KV mode")
     opts = parser.parse_args()
+    if opts.decode:
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+        return decode_main()
     quantize = opts.quantize
     if quantize == "int4" and opts.model == "t5":
         parser.error("--quantize int4 targets decoder models (--model qwen2.5-3b)")

@@ -9,8 +9,9 @@ It builds the port's CUDA kernels from ``llmrankers_tpu_torch/csrc`` (one
 nvcc per source, side by side) and then, one line per phase:
 
 1. prints the device, and the card's name and power limit from nvidia-smi;
-2. builds ``flash_blhd.cu``, ``int8_fusedq.cu`` and ``int4_w4a8.cu`` and
-   prints the build time and ptxas's registers and spills;
+2. builds ``flash_blhd.cu``, ``int8_fusedq.cu``, ``int4_w4a8.cu`` and
+   ``kvq_decode.cu`` and prints the build time and ptxas's registers and
+   spills;
 3. B1: holds the flash kernel against its plain PyTorch version at the bf16
    path's shapes (flan-t5-large encoder: B 32, L 512 and 640, H 16, Dh 64,
    a rel-pos bias table of std 1 as in a trained model, right padding, one
@@ -76,7 +77,29 @@ nvcc per source, side by side) and then, one line per phase:
 19. the end-to-end rerank with ``quantize="int8"``, B5, B3 and B6 launched
     in multiples of 36;
 20. and 21. the same two phases with ``quantize="int4"`` (B3, B5, B7);
-22. prints a JSON line of the eight kernels (with each one's bound on this
+22. B8: decode attention over a quantized KV cache against its plain
+    version at the generate phase's shape (B 8, KV 2, G 8, Dh 128, T 2304:
+    a 1536-slot prefix area with 1200 real, a 640-slot suffix area with
+    per-row lengths, 64 decoded slots; the last row sees only its self term),
+    int8 and int4, with a window of 512, and at T 1968; K/V rows of
+    log-normal norms and peaked queries, so that scales rolled by one
+    position, swapped nibble planes (int4) and a dropped self term must fail
+    the gate; SDPA on the dequantized cache as yardstick;
+23. ``ScoringEngine.generate`` on that Qwen2.5-3B at bench.py's
+    rankr1_decode shape (batch 8, a shared 1200-token prefix, 640-token
+    suffixes, 128 new tokens greedy in chunks of 64 with a stop string) with
+    bf16 weights and bf16, int8 and int4 KV, then int8 and int4 weights with
+    int4 KV: B8 launched 36 x 128 times with a quantized cache, the run's
+    tokens teacher-forced through the decode with every kernel site on its
+    plain version (first-step logits within a relative 0.05, 0.1 with
+    quantized weights, as the hidden-state gates; every token the plain
+    argmax or within 0.25 of it), ms per decode step, peak memory, and
+    the decode-M (8) times of bf16, W8A16 and B7 at Qwen2.5-3B's sites;
+24. Rank-R1 setwise end to end through ``cli.run.main`` on
+    ``random:qwen2.5-3b`` with ``--kv_quantize int8`` and
+    ``prompt_setwise-R1.toml``, 2 queries x 20 passages, num_child 19, k 1,
+    128 completion tokens, counting B8's launches;
+25. prints a JSON line of the nine kernels (with each one's bound on this
     card and the one-call PyTorch time where there is one; B6, B7 and B9
     carry a timing yardstick instead, and B9, which no path calls, is marked
     standalone), then ``{"ok": true, "device": ...}``.
@@ -95,25 +118,28 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA GPU and none is available")
 
 from llmrankers_tpu_torch.cli import run as cli_run  # noqa: E402
+from llmrankers_tpu_torch.engine import engine as engine_mod  # noqa: E402
 from llmrankers_tpu_torch.engine import generate, parity  # noqa: E402
 from llmrankers_tpu_torch.engine.engine import ScoringEngine  # noqa: E402
 from llmrankers_tpu_torch.engine.tokenizer import ByteTokenizer  # noqa: E402
 from llmrankers_tpu_torch.models import decoder, t5  # noqa: E402
 from llmrankers_tpu_torch.models.config import DecoderConfig, T5Config  # noqa: E402
 from llmrankers_tpu_torch.models.quant import quantize_weight  # noqa: E402
-from llmrankers_tpu_torch.ops import _build, flash, int4_matmul, int8_matmul  # noqa: E402
+from llmrankers_tpu_torch.ops import (_build, flash, int4_matmul, int8_matmul,  # noqa: E402
+                                      kvq_attention)
 from llmrankers_tpu_torch.rankers.prompts import setwise_prompt  # noqa: E402
 from llmrankers_tpu_torch.rankers.setwise import SetwiseLlmRanker  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
-N_PHASES = 22
-SOURCES = ("flash_blhd", "int8_fusedq", "int4_w4a8")
+N_PHASES = 25
+SOURCES = ("flash_blhd", "int8_fusedq", "int4_w4a8", "kvq_decode")
 KERNEL_TOL = 0.05  # bf16 flash kernel vs plain, max |diff| on rows with a valid key
 # Label logits through 24+24 bf16 layers, kernel vs plain: each layer's
 # output may differ by an ulp of bf16 (2^-8 relative), and the differences
@@ -147,6 +173,7 @@ COUNTERS = {
     "gated_matmul_pair": int8_matmul.gated_matmul_pair,
     "quantized_matmul_int4": int4_matmul.quantized_matmul_int4,
     "int8_matmul": int8_matmul.int8_matmul,
+    "kvq_decode_attention": kvq_attention.kvq_decode_attention,
 }
 # H100 SXM data sheet, dense rates at the 700 W limit: the least time a call
 # could take is the larger of its operations over the peak for their type and
@@ -1167,6 +1194,381 @@ def phase_quant_decoder_score_labels(n, cfg, model, quantize, bf16_logits):
           f"|diff| {vs_bf16:.4g}, winners equal on {same}/32 rows")
 
 
+# ---------------------------------------------------------------------------
+# Decoder generation (B8): the kernel alone, generate, Rank-R1
+# ---------------------------------------------------------------------------
+GEN_BATCH, GEN_PREFIX, GEN_SUFFIX, GEN_NEW = 8, 1200, 640, 128  # bench.py rankr1_decode
+
+
+def _gen_T():
+    """The cache length the generate phase's shared path gives B8: the padded
+    prefix area, the suffix area and the new tokens."""
+    ladder = engine_mod.DEFAULT_LEN_BUCKETS
+    return (engine_mod._bucket(GEN_PREFIX, ladder) + engine_mod._bucket(GEN_SUFFIX, ladder)
+            + GEN_NEW)
+
+
+def _kvq_inputs(gen, B, KV, G, Dh, T, mode, window=None):
+    """B8's operands at trained-like scales: K/V rows whose norms vary from
+    position to position (log-normal), queries whose scores have a spread of
+    a few units, so attention is peaked and a wrong scale or plane moves the
+    output. The key mask has the shared path's layout: a right-padded prefix
+    of 1200 of 1536 slots, a suffix of 640 slots with per-row lengths, 64
+    decoded slots; the last row sees no cache key (only its self term)."""
+    dev = "cuda"
+
+    def rows(*shape):
+        x = torch.randn(*shape, generator=gen, device=dev)
+        return x * torch.exp(0.5 * torch.randn(*shape[:-1], 1, generator=gen, device=dev))
+
+    qg = (3.0 * torch.randn(B, KV, G, Dh, generator=gen, device=dev)).bfloat16()
+    k, v = rows(B, KV, T, Dh), rows(B, KV, T, Dh)
+    k_new, v_new = rows(B, KV, Dh).bfloat16(), rows(B, KV, Dh).bfloat16()
+    kc, vc = generate._kv_pack(k, mode), generate._kv_pack(v, mode)
+    Lp = min(1536, T // 2)
+    slots = torch.arange(T, device=dev)[None, :]
+    slen = torch.randint(GEN_SUFFIX // 2, GEN_SUFFIX + 1, (B,), generator=gen, device=dev)
+    mask = ((slots < min(GEN_PREFIX, Lp))
+            | ((slots >= Lp) & (slots < Lp + slen[:, None]))
+            | ((slots >= T - GEN_NEW) & (slots < T - GEN_NEW + 64)))
+    mask[-1] = False
+    if window is not None:  # the decode loop's window: cumulative slot positions
+        pos = mask.sum(1, keepdim=True)  # the current token's position
+        mask = mask & (pos - (torch.cumsum(mask.long(), 1) - 1) < window)
+    return qg, kc, vc, k_new, v_new, mask.contiguous()
+
+
+def _kvq_no_self(qg, kc, vc, amask, scale, mode):
+    """The decode attention with the self term dropped (a control)."""
+    s = kvq_attention.cached_qk(qg, kc, qg.dtype, mode, "bkgd,bktd->bkgt") * scale
+    p = torch.softmax(s.masked_fill(~amask[:, None, None, :], -1e9), dim=-1)
+    return kvq_attention.cached_pv(p, vc, qg.dtype, mode, "bkgt,bktd->bkgd")
+
+
+def _kvq_case(gen, T, mode, window=None):
+    B, KV, G, Dh = GEN_BATCH, 2, 8, 128
+    qg, kc, vc, kn, vn, amask = _kvq_inputs(gen, B, KV, G, Dh, T, mode, window)
+    scale = Dh**-0.5
+    args = (qg, kc, vc, kn, vn, amask, scale, mode)
+    got = kvq_attention.kvq_decode_attention(*args)
+    torch.cuda.synchronize()
+    if got.shape != (B, KV, G, Dh) or got.dtype != torch.float32 or not torch.isfinite(
+            got).all():
+        raise AssertionError(f"B8 output: {got.dtype} {tuple(got.shape)} or not finite")
+    want = kvq_attention.kvq_decode_attention_plain(*args)
+    err = (got - want).abs().max().item()
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"B8 {mode} T {T} kernel vs plain max |diff| {err} > "
+                             f"{KERNEL_TOL}")
+    ctl = {}
+    roll = lambda c: (c[0], c[1].roll(1, dims=2))  # noqa: E731
+    ctl["scales rolled by one"] = (kvq_attention.kvq_decode_attention(
+        qg, roll(kc), roll(vc), kn, vn, amask, scale, mode) - want).abs().max().item()
+    if mode == "int4":
+        def swap(c):
+            p = c[0].to(torch.int32)
+            return ((((p & 0x0F) << 4) | ((p >> 4) & 0x0F)).to(torch.int8), c[1])
+        ctl["nibble planes swapped"] = (kvq_attention.kvq_decode_attention(
+            qg, swap(kc), swap(vc), kn, vn, amask, scale, mode) - want).abs().max().item()
+    ctl["self term dropped"] = (got - _kvq_no_self(qg, kc, vc, amask, scale, mode)
+                                ).abs().max().item()
+    blind = [c for c, e in ctl.items() if not e > KERNEL_TOL]
+    if blind:
+        raise AssertionError(f"B8 gate {KERNEL_TOL} passes {blind}: {ctl}")
+    # Bound: every operand read once, the output written once; the int8 or
+    # nibble products at the bf16 rate (they take no tensor core here).
+    nbytes = _nbytes(qg, *kc, *vc, kn, vn, amask, got)
+    ops = 4 * B * KV * G * Dh * T
+    bound = _bound(ops, nbytes, H100_BF16_FLOPS)
+    # Yardstick: SDPA over the dequantized cache with the self term as its
+    # last key (timing only).
+    def deq(c):
+        if mode == "int4":
+            lo, hi = kvq_attention.unpack4(c[0], torch.float32)
+            return torch.cat([lo * c[1][..., :1], hi * c[1][..., 1:]], -1)
+        return c[0].float() * c[1]
+    kd = torch.cat([deq(kc), kn.float()[:, :, None]], 2).bfloat16()
+    vd = torch.cat([deq(vc), vn.float()[:, :, None]], 2).bfloat16()
+    sd_mask = torch.where(F.pad(amask, (0, 1), value=True), 0.0, NEG).bfloat16()
+    q4 = qg.reshape(B, KV * G, 1, Dh)
+    lib = _sdpa_ms(q4, kd, vd, sd_mask[:, None, None, :], scale)
+    ms, plain_ms, runs = _in_turns(lambda: kvq_attention.kvq_decode_attention(*args),
+                                   lambda: kvq_attention.kvq_decode_attention_plain(*args), 5)
+    return _record(err, ms, plain_ms, bound, lib, ctl=ctl, runs=runs, nbytes=nbytes)
+
+
+def phase_kvq(gen):
+    """B8 alone at the generate phase's shape, int8 and int4, with a window
+    case, and at the issue's unpadded T 1968."""
+    tic = time.perf_counter()
+    T = _gen_T()
+    cases = {("int8", T, None): None, ("int4", T, None): None,
+             ("int8", T, 512): None, ("int4", 1968, None): None, ("int8", 1968, None): None}
+    parts = []
+    for mode, t, window in cases:
+        rec = _kvq_case(gen, t, mode, window)
+        cases[mode, t, window] = rec
+        parts.append(
+            f"{mode} T {t}{f' window {window}' if window else ''}: max |diff| "
+            f"{rec['max_abs_err']:.4g}; controls " + ", ".join(
+                f"{c} {e:.4g}" for c, e in rec["ctl"].items())
+            + f"; kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms "
+            f"({_turns_text(rec['runs'])}), bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}, {rec['nbytes'] / 1e6:.2f} MB), SDPA on the dequantized "
+            f"cache {rec['library_ms']:.4f} ms")
+        torch.cuda.empty_cache()
+    print(f"[22/{N_PHASES}] B8 kvq_decode_attention vs plain, B {GEN_BATCH} KV 2 G 8 Dh 128, "
+          f"left-padding holes, one row with only its self term (tol {KERNEL_TOL}; every "
+          f"control over tol): " + "; ".join(parts)
+          + f" ({time.perf_counter() - tic:.1f} s)")
+    rec = {k: v for k, v in cases["int8", T, None].items() if k not in ("ctl", "runs")}
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in cases.values())
+    i4 = cases["int4", T, None]
+    rec.update(shape=f"B{GEN_BATCH} KV2 G8 Dh128 T{T}", int4_ms=i4["ms"],
+               int4_plain_ms=i4["plain_ms"], int4_bound_ms=i4["bound_ms"],
+               int4_library_ms=i4["library_ms"])
+    rec.pop("nbytes")
+    return rec
+
+
+def _gen_rows():
+    """bench.py rankr1_decode's rows: one shared 1200-token prefix, 640-token
+    suffixes, token ids from a seed."""
+    rng = np.random.RandomState(929)
+    pre = rng.randint(2, 30000, GEN_PREFIX).tolist()
+    return [pre + rng.randint(2, 30000, GEN_SUFFIX).tolist() for _ in range(GEN_BATCH)]
+
+
+def _forced_logits(engine, rows, tokens, steps, plain):
+    """Logits [steps, B, V] of the decode steps that consume ``tokens[:, i]``
+    (the kernel run's own tokens), on the engine's shared-prefix cache; with
+    ``plain`` every kernel site of the decode on its plain version."""
+    model = engine.model
+    n, (pids, pmask, gidx, sids, smask), _ = engine._group(rows)
+    ks, vs = generate.decoder_prefix_kv(model, pids, pmask)
+    _, cache = generate.decoder_shared_prefill(
+        model, ks.index_select(1, gidx), vs.index_select(1, gidx),
+        pmask.index_select(0, gidx), sids, smask, steps, kv_quant=engine.cfg.kv_quant)
+    kc, vc, kmask, pos = cache
+    L = kmask.shape[1] - steps
+    tok = torch.from_numpy(tokens).cuda()
+    model.plain_kernels = plain
+    out = []
+    try:
+        for i in range(steps):
+            cos, sin = model.rope(pos[:, None], generate._act_dtype(model))
+            logits, kn, vn = generate._decode_token_forward(model, tok[:, i], kc, vc, kmask,
+                                                            cos, sin)
+            generate._cache_put(kc, kn[:, :, :, None, :], L + i)
+            generate._cache_put(vc, vn[:, :, :, None, :], L + i)
+            kmask[:, L + i] = True
+            pos = pos + 1
+            out.append(logits.float())
+    finally:
+        model.plain_kernels = False
+    return torch.stack(out)
+
+
+def _site_times(model):
+    """ms per call at decode M = 8 of the Qwen2.5-3B sites: bf16 torch.matmul,
+    W8A16 (the int8 weight dequantized into the product, what qmm runs below
+    M 1024) and B7."""
+    from llmrankers_tpu_torch.models import quant
+    lp = model.layers[0]
+    x = {}
+    out = {}
+    for name in ("wq", "wk", "w_gate", "w_down"):
+        w = lp[name]
+        K, N = w.shape
+        xx = x.setdefault(K, torch.randn(GEN_BATCH, K, device="cuda").bfloat16())
+        w8, s8 = quantize_weight(w)
+        s8 = s8.bfloat16()
+        p4, s4 = int4_matmul.pack_int4(w)
+        out[f"{name} [{K}, {N}]"] = (
+            _cuda_ms(lambda: xx @ w, 50, 5),
+            _cuda_ms(lambda: quant._matmul(xx, w8.to(s8.dtype) * s8), 50, 5),
+            _cuda_ms(lambda: int4_matmul.quantized_matmul_int4(xx, p4, s4), 50, 5))
+    return out
+
+
+def phase_generate(n, cfg, model):
+    """ScoringEngine.generate on Qwen2.5-3B at rankr1_decode's shape: bf16
+    weights with bf16, int8 and int4 KV; int8 and int4 weights with int4 KV.
+    Counts set to 0 just before each run and read just after."""
+    tic0 = time.perf_counter()
+    rows = _gen_rows()
+    tok = ByteTokenizer(cfg.vocab_size)
+    runs = [(None, None), (None, "int8"), (None, "int4"), ("int8", "int4"), ("int4", "int4")]
+    parts, b8_launches, tokens = [], {}, {}
+    stop = ("</answer>",)
+    for quantize, kvq in runs:
+        engine = ScoringEngine("decoder", cfg, model, tok, quantize=quantize, kv_quantize=kvq)
+        label = f"{quantize or 'bf16'} weights, {kvq or 'bf16'} KV"
+        engine.generate(rows, max_new_tokens=8, chunk_tokens=4, stop_strings=stop)  # warm-up
+        # The dispatches' token matrices, before they are decoded to text.
+        captured, dispatch = [], engine._generate_dispatch
+
+        def recording(*a, **kw):
+            captured.append(dispatch(*a, **kw))
+            return captured[-1]
+
+        engine._generate_dispatch = recording
+        walls = {}
+        for new in (1, GEN_NEW):  # prefill and one step; then the whole budget
+            captured.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            engine.programs.clear()
+            for fn in COUNTERS.values():
+                fn.launches = 0
+            tic = time.perf_counter()
+            texts, ntoks = engine.generate(rows, max_new_tokens=new, chunk_tokens=GEN_NEW // 2,
+                                           stop_strings=stop)
+            torch.cuda.synchronize()
+            walls[new] = time.perf_counter() - tic
+        launches = {k: fn.launches for k, fn in COUNTERS.items()}
+        programs = dict(engine.programs)
+        mem = torch.cuda.max_memory_allocated() / 2**30
+        ids = np.concatenate(captured)
+        if len(texts) != GEN_BATCH or ids.shape != (GEN_BATCH, GEN_NEW) or sum(ntoks) == 0:
+            raise AssertionError(f"{label}: generate gave {len(texts)} texts, tokens "
+                                 f"{ids.shape}, counts {ntoks}")
+        want_b8 = cfg.num_hidden_layers * GEN_NEW if kvq else 0
+        if launches["kvq_decode_attention"] != want_b8:
+            raise AssertionError(f"{label}: {launches['kvq_decode_attention']} B8 launches, "
+                                 f"want {want_b8} (layers x steps): {launches}")
+        if quantize == "int4" and not launches["quantized_matmul_int4"]:
+            raise AssertionError(f"{label}: B7 never launched: {launches}")
+        for p_ in ("dec_prefill_pre", "dec_chunk"):
+            if not programs.get(p_):
+                raise AssertionError(f"{label}: never ran {p_}: {programs}")
+        gate = ""
+        if kvq is not None:
+            # The run's tokens, teacher-forced through the decode with the
+            # kernels (first step) and on their plain versions (every step):
+            # each token the run picked must be the plain argmax, or within
+            # LOGIT_TOL of it, up to the row's EOS.
+            with torch.inference_mode():
+                kern = _forced_logits(engine, rows, ids, 1, plain=False)
+                plain = _forced_logits(engine, rows, ids, GEN_NEW - 1, plain=True)
+            first_diff = (kern[0] - plain[0]).abs().max().item()
+            first_rel = _rel(kern[0], plain[0])
+            # The hidden-state gates' convention: quantized weights move
+            # the same difference further through 36 layers.
+            rel_tol = INT8_ENC_TOL if quantize else ENC_TOL
+            if not first_rel <= rel_tol:
+                raise AssertionError(f"{label}: first decode step logits, kernels vs plain "
+                                     f"versions, relative error {first_rel} > {rel_tol}")
+            nxt = torch.from_numpy(ids[:, 1:]).cuda().T  # [steps, B]: the run's picks
+            eos_at = [list(r).index(cfg.eos_token_id) if cfg.eos_token_id in r else GEN_NEW
+                      for r in ids.tolist()]
+            live = (torch.arange(1, GEN_NEW, device="cuda")[:, None]
+                    <= torch.tensor(eos_at, device="cuda")[None, :])
+            gap = (plain.max(-1).values - plain.gather(-1, nxt[..., None])[..., 0])[live]
+            flips = int((gap > 0).sum())
+            clear_miss = int((gap > LOGIT_TOL).sum())
+            if clear_miss:
+                raise AssertionError(f"{label}: {clear_miss} decode steps where the kernel "
+                                     f"run's token is not the plain run's argmax by more "
+                                     f"than {LOGIT_TOL}")
+            gate = (f"; kernels vs plain versions: first-step logits relative error "
+                    f"{first_rel:.4g} (tol {rel_tol}; max |diff| {first_diff:.4g} over the "
+                    f"vocabulary), tokens equal to the plain argmax "
+                    f"on {gap.numel() - flips} of {gap.numel()} steps, the rest within "
+                    f"{LOGIT_TOL} of it (max gap {gap.max().item():.4g})")
+            del kern, plain
+        tokens[label] = ids
+        b8_launches[label] = launches["kvq_decode_attention"]
+        step_ms = (walls[GEN_NEW] - walls[1]) / (GEN_NEW - 1) * 1e3
+        parts.append(
+            f"{label}: wall {walls[GEN_NEW]:.3f} s for {GEN_NEW} tokens, {walls[1]:.3f} s for "
+            f"prefill and one, so {step_ms:.2f} ms per decode step = "
+            f"{GEN_BATCH * 1e3 / step_ms:.1f} tokens/s; programs {programs}; launches "
+            + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+            + f"; max memory allocated {mem:.2f} GiB" + gate)
+        del engine
+        torch.cuda.empty_cache()
+    ref = tokens["bf16 weights, bf16 KV"]
+    agree = {k: float((v == ref).mean()) for k, v in tokens.items()}
+    sites = _site_times(model)
+    print(f"[{n}/{N_PHASES}] generate, Qwen2.5-3B random init, batch {GEN_BATCH}, shared "
+          f"prefix {GEN_PREFIX} + suffix {GEN_SUFFIX}, {GEN_NEW} new tokens greedy in chunks "
+          f"of {GEN_NEW // 2} with a stop string (one run each, host clock): "
+          + "; ".join(parts)
+          + "; token agreement with bf16/bf16 (information): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in agree.items())
+          + "; ms per call at decode M 8 (bf16 / W8A16 / B7): " + ", ".join(
+              f"{k} {a:.4f} / {b:.4f} / {c:.4f}" for k, (a, b, c) in sites.items())
+          + f" ({time.perf_counter() - tic0:.1f} s)")
+    return b8_launches
+
+
+def _write_r1_inputs(n_queries=2, n_docs=20):
+    os.makedirs(SCRATCH, exist_ok=True)
+    paths = {n: os.path.join(SCRATCH, "r1_" + n) for n in ("q.tsv", "c.jsonl", "run.txt",
+                                                           "out.txt")}
+    with open(paths["q.tsv"], "w") as f:
+        for qi in range(n_queries):
+            f.write(f"q{qi}\t{QUERY_HEADS[qi]}: which passage is about topic {qi}\n")
+    with open(paths["c.jsonl"], "w") as f:
+        for d in range(n_docs):
+            f.write(json.dumps({"id": f"d{d}", "text": _passage(
+                d, f"this passage talks about topic {d}")}) + "\n")
+    with open(paths["run.txt"], "w") as f:
+        for qi in range(n_queries):
+            for rank in range(1, n_docs + 1):
+                f.write(f"q{qi} Q0 d{rank - 1} {rank} {n_docs - rank} bm25\n")
+    return paths
+
+
+def phase_rank_r1(n):
+    """Rank-R1 setwise end to end through the CLI on Qwen2.5-3B with an int8
+    KV cache: 2 queries x 20 passages, num_child 19, k 1, 128 completion
+    tokens. The counts are set to 0 just before and read just after."""
+    paths = _write_r1_inputs()
+    args = cli_run.parse_args([
+        "run", "--model_name_or_path", "random:qwen2.5-3b", "--device", "cuda",
+        "--dtype", "bfloat16", "--seed", "0", "--kv_quantize", "int8",
+        "--prompt_file", os.path.join(ROOT, "llmrankers_tpu_torch", "prompts",
+                                      "prompt_setwise-R1.toml"),
+        "--run_path", paths["run.txt"], "--query_file", paths["q.tsv"],
+        "--corpus_file", paths["c.jsonl"], "--save_path", paths["out.txt"],
+        "--hits", "20", "--query_length", "32", "--passage_length", str(PASSAGE_TOKENS),
+        "setwise", "--num_child", "19", "--method", "heapsort", "--k", "1",
+        "--max_completion_tokens", str(GEN_NEW),
+    ])
+    torch.cuda.reset_peak_memory_stats()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    report = cli_run.main(args)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in COUNTERS.items()}
+    comps = report.total.comparisons
+    layers = DecoderConfig.qwen25_3b().num_hidden_layers
+    b8 = launches["kvq_decode_attention"]
+    if comps != 2 or b8 == 0 or b8 % (layers * GEN_NEW):
+        raise AssertionError(f"Rank-R1: {comps} comparisons, {b8} B8 launches (want "
+                             f"dispatches x {layers} layers x {GEN_NEW} steps): {launches}")
+    if not launches["flash_mha"]:
+        raise AssertionError(f"Rank-R1 prefill never launched B5: {launches}")
+    with open(paths["out.txt"]) as f:
+        lines = [ln.split() for ln in f]
+    for qi in range(2):
+        got = [ln for ln in lines if ln[0] == f"q{qi}"]
+        if sorted(ln[2] for ln in got) != sorted(f"d{d}" for d in range(20)):
+            raise AssertionError(f"Rank-R1 q{qi}: output is not a ranking of its 20 docs")
+    mem = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{n}/{N_PHASES}] end to end, Rank-R1 setwise through cli.run.main, "
+          f"random:qwen2.5-3b bf16 --kv_quantize int8, prompt_setwise-R1.toml, 2 queries x "
+          f"20 passages of {PASSAGE_TOKENS} tokens, num_child 19, k 1, "
+          f"--max_completion_tokens {GEN_NEW}: rerank wall {report.wall_s:.3f} s, {comps} "
+          f"comparisons, {report.total.prompt_tokens} prompt and "
+          f"{report.total.completion_tokens} completion tokens; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+          + f"; max memory allocated {mem:.2f} GiB")
+    return launches
+
+
 def _kernel_entry(name, source, replaces, launches, measured, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **measured, **extra}
@@ -1219,9 +1621,15 @@ def main():
         phase_quant_decoder_score_labels(n, qwen, model, quantize, bf16_logits)
         torch.cuda.empty_cache()
         quant_launches[quantize] = phase_decoder_end_to_end(n + 1, qwen, model, quantize)
+    torch.cuda.empty_cache()
+    b8 = phase_kvq(torch.Generator(device="cuda").manual_seed(2))
+    torch.cuda.empty_cache()
+    gen_launches = phase_generate(23, qwen, model)
     del model
+    torch.cuda.empty_cache()
+    r1_launches = phase_rank_r1(24)
     csrc, ops = "llmrankers_tpu_torch/csrc/", "llmrankers_tpu/ops/"
-    print(f"[22/{N_PHASES}] kernels and result:")
+    print(f"[25/{N_PHASES}] kernels and result:")
     print(json.dumps({"kernels": [
         _kernel_entry("flash_mha_blhd", csrc + "flash_blhd.cu", ops + "flash.py:373",
                       bf16_launches["flash_mha_blhd"], b1),
@@ -1241,6 +1649,9 @@ def main():
                       quant_launches["int4"]["quantized_matmul_int4"], b7),
         _kernel_entry("int8_matmul", csrc + "int8_fusedq.cu", ops + "int8_matmul.py:131",
                       0, b9, standalone=True),
+        _kernel_entry("kvq_decode_attention", csrc + "kvq_decode.cu",
+                      ops + "kvq_attention.py:167", r1_launches["kvq_decode_attention"], b8,
+                      generate_launches=gen_launches),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

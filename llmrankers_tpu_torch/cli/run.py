@@ -13,7 +13,7 @@ are. Usage:
 
 ``--device`` picks the torch device: ``cuda`` by default, which raises when
 no GPU is present; the CPU runs only when asked for with ``--device cpu``.
-Models are the ``random:{t5-tiny,t5-large,t5-xl,dec-tiny,mistral-tiny}``
+Models are the ``random:{t5-tiny,t5-large,t5-xl,dec-tiny,mistral-tiny,qwen2.5-3b}``
 presets (random weights from ``--seed``; ``mistral-tiny`` is ``dec-tiny``
 with a sliding window of 64); ``--quantize int8`` runs the T5 presets as
 W8A8 int8 on the int8 kernels, and ``--quantize int8|int4`` the decoder
@@ -23,6 +23,11 @@ tokenize with the byte tokenizer, or
 with the local HF tokenizer directory that ``--tokenizer_name_or_path``
 names (for example flan-t5's, for prompts of its real token lengths).
 ``--prefix_cache_mb`` sizes the decoder engine's cross-wave prefix-KV cache.
+On the decoder presets ``--scoring generation`` decodes one token per
+comparison, ``--kv_quantize int8|int4`` quantizes the generation KV cache
+(its decode attention runs the hand-written kernel on the card), and
+``--prompt_file`` (in the run or the setwise section) runs the Rank-R1
+setwise ranker with that TOML prompt pack and ``--max_completion_tokens``.
 Flags of features that are not ported yet raise ``NotImplementedError``
 naming their ROADMAP item.
 """
@@ -48,6 +53,7 @@ PRESETS = {
     "t5-large": T5Config.flan_t5_large,
     "t5-xl": T5Config.flan_t5_xl,
     "dec-tiny": DecoderConfig.tiny,
+    "qwen2.5-3b": DecoderConfig.qwen25_3b,
     # Sliding-window smoke config (Mistral v0.1-style attention).
     "mistral-tiny": lambda: dataclasses.replace(DecoderConfig.tiny(), sliding_window=64),
 }
@@ -276,11 +282,9 @@ def _check_ported(args) -> None:
     r = args.run
     unported = [
         (r.openai_key, "--openai_key (API rankers)", "A6"),
-        (r.kv_quantize, "--kv_quantize", "A8"),
         (r.awq_calib_file, "--awq_calib_file", "A9 (AWQ)"),
-        (r.spec_lookup, "--spec_lookup", "A8"),
+        (r.spec_lookup, "--spec_lookup", "A8(b)"),
         (r.lora_path_or_name, "--lora_path_or_name", "A10"),
-        (r.prompt_file, "--prompt_file (Rank-R1)", "A8"),
         (r.tensor_parallel > 1 or r.data_parallel > 1,
          "--tensor_parallel/--data_parallel", "A13"),
         (r.cohorts > 1, "--cohorts", "A15"),
@@ -290,7 +294,6 @@ def _check_ported(args) -> None:
     ]
     if args.setwise:
         unported += [
-            (args.setwise.prompt_file, "setwise --prompt_file (Rank-R1)", "A8"),
             (args.setwise.lora_name_or_path, "setwise --lora_name_or_path", "A10"),
         ]
     for value, flag, item in unported:
@@ -333,7 +336,7 @@ def make_engine(run_args):
     if run_args.max_batch_tokens is not None:
         extra["max_batch_tokens"] = run_args.max_batch_tokens
     return ScoringEngine(kind, cfg, model, tok, device=device,
-                         quantize=run_args.quantize,
+                         quantize=run_args.quantize, kv_quantize=run_args.kv_quantize,
                          prefix_cache_mb=run_args.prefix_cache_mb, **extra)
 
 
@@ -343,6 +346,22 @@ def make_ranker(args, engine):
     if not args.setwise:
         raise NotImplementedError(
             "only the setwise ranker is ported (ROADMAP A6 ports the others)")
+    sw_prompt = args.setwise.prompt_file or args.run.prompt_file
+    if sw_prompt:
+        from ..rankers.rank_r1 import RankR1SetwiseLlmRanker
+
+        return RankR1SetwiseLlmRanker(
+            engine,
+            prompt_file=sw_prompt,
+            num_child=args.setwise.num_child,
+            k=args.setwise.k,
+            method=args.setwise.method,
+            num_permutation=args.setwise.num_permutation,
+            max_completion_tokens=args.setwise.max_completion_tokens,
+            verbose=args.run.verbose,
+            spec_depth=args.setwise.speculative_depth,
+            cache_comparisons=args.setwise.cache_comparisons,
+        )
     return SetwiseLlmRanker(
         engine,
         num_child=args.setwise.num_child,

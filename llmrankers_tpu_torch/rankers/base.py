@@ -26,10 +26,19 @@ class EngineRanker(LlmRanker):
         super().__init__()
         self.engine = engine
         self.max_wave_size = max_wave_size
+        # Named engine adapter for this ranker's calls; LoRA is not ported
+        # (ROADMAP A10), so it stays None.
+        self.adapter: Optional[str] = None
         # Comparison-memoization key function, set by subclasses when
         # caching is requested and scoring is deterministic.
         self._cache_key_fn: Optional[Callable[[Any], Any]] = None
         self._query_stats: List[RerankStats] = []
+
+    def _row_adapters_for(self, qidxs: Sequence[int]):
+        """Per-row adapters of a wave (row i belongs to query qidxs[i]), or
+        None when the call has no per-query adapters. Per-query adapters
+        come with LoRA serving (ROADMAP A10): always None here."""
+        return None
 
     @staticmethod
     def _docid_cache_key(r: Any) -> Any:

@@ -205,13 +205,29 @@ def test_shared_prefill_equals_whole_prompt_forward():
 
 
 def test_generation_cache_is_not_ported():
-    _, _, _, model = _models("tiny")
+    """``max_new_tokens`` on the shared prefill now builds the generation
+    cache: [prefix | suffix | free slots] along T, its key mask and next
+    positions equal JAX's, and its K/V within the fp32 tolerance."""
+    jcfg, _, tree, model = _models("tiny")
     pids, pmask, gidx, sids, smask = _prefix_inputs()
-    ks, vs = tgen.decoder_prefix_kv(model, torch.from_numpy(pids), torch.from_numpy(pmask))
-    with pytest.raises(NotImplementedError, match="A8"):
-        tgen.decoder_shared_prefill(model, ks, vs, torch.from_numpy(pmask),
-                                    torch.from_numpy(sids[:2]), torch.from_numpy(smask[:2]),
-                                    max_new_tokens=4)
+    jt = _jtree(tree)
+    jks, jvs = jgen.decoder_prefix_kv(jt, jcfg, jnp.asarray(pids), jnp.asarray(pmask))
+    _, (wk, wv, wmask, wpos) = jgen.decoder_shared_prefill(
+        jt, jcfg, jnp.take(jks, jnp.asarray(gidx), axis=1),
+        jnp.take(jvs, jnp.asarray(gidx), axis=1), jnp.asarray(pmask[gidx]),
+        jnp.asarray(sids), jnp.asarray(smask), 4)
+    with torch.no_grad():
+        ks, vs = tgen.decoder_prefix_kv(model, torch.from_numpy(pids), torch.from_numpy(pmask))
+        g = torch.from_numpy(gidx).long()
+        _, (gk, gv, gmask, gpos) = tgen.decoder_shared_prefill(
+            model, ks.index_select(1, g), vs.index_select(1, g),
+            torch.from_numpy(pmask[gidx]), torch.from_numpy(sids), torch.from_numpy(smask),
+            max_new_tokens=4)
+    assert gk.shape == np.asarray(wk).shape == (2, 5, 2, 80 + 48 + 4, 16)
+    np.testing.assert_array_equal(gmask.numpy(), np.asarray(wmask))
+    np.testing.assert_array_equal(gpos.numpy(), np.asarray(wpos))
+    for got, want in ((gk, wk), (gv, wv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
 
 
 def test_rope_and_positions_match_jax():

@@ -9,7 +9,8 @@ modules equal their originals byte for byte (their imports are relative), and
 what they compute agrees: config presets, ``parse_args``, prefix grouping.
 ``chip_smoke.py`` must fail, printing no result, where there is no GPU and
 where it stands alone; so must ``chip_profile.py`` where there is no GPU. The
-byte tokenizer and the setwise prompt must equal the JAX package's.
+byte tokenizer and the setwise prompt must equal the JAX package's, and the
+port's copies of the Rank-R1 prompt packs their originals byte for byte.
 """
 import argparse
 import ast
@@ -45,6 +46,7 @@ PORT_MODULES = [
     "llmrankers_tpu_torch.ops._build",
     "llmrankers_tpu_torch.ops.attention", "llmrankers_tpu_torch.ops.flash",
     "llmrankers_tpu_torch.ops.int8_matmul", "llmrankers_tpu_torch.ops.int4_matmul",
+    "llmrankers_tpu_torch.ops.kvq_attention",
     "llmrankers_tpu_torch.models.config",
     "llmrankers_tpu_torch.models.decoder", "llmrankers_tpu_torch.models.quant",
     "llmrankers_tpu_torch.models.t5", "llmrankers_tpu_torch.engine.engine",
@@ -52,8 +54,12 @@ PORT_MODULES = [
     "llmrankers_tpu_torch.engine.prefix",
     "llmrankers_tpu_torch.engine.tokenizer", "llmrankers_tpu_torch.rankers.base",
     "llmrankers_tpu_torch.rankers.prompts", "llmrankers_tpu_torch.rankers.setwise",
+    "llmrankers_tpu_torch.rankers.rank_r1",
     "llmrankers_tpu_torch.cli.run",
 ]
+# The JAX package's prompt packs, copied into the port under the same path.
+PROMPT_PACKS = sorted(n for n in os.listdir(os.path.join(ROOT, "llmrankers_tpu", "prompts"))
+                      if n.endswith(".toml"))
 # The JAX package's host modules, copied into the port under the same path.
 COPIES = ["types.py", "algos/scheduler.py", "algos/setwise_sort.py",
           "data/docstore.py", "data/trec.py", "engine/prefix.py",
@@ -117,6 +123,29 @@ def test_copies_equal_their_originals(rel):
         assert a.read() == b.read()
 
 
+@pytest.mark.parametrize("name", PROMPT_PACKS)
+def test_prompt_packs_equal_their_originals(name):
+    """The Rank-R1 packs are model artifacts: the port's copies match the
+    JAX package's byte for byte."""
+    with open(os.path.join(ROOT, "llmrankers_tpu", "prompts", name), "rb") as a, \
+            open(os.path.join(PKG, "prompts", name), "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_package_data_covers_the_port_files():
+    """Every kernel source and header and every prompt pack ships with the
+    package (the shared header ``csrc/int8_mma.cuh`` was once left out, so an
+    installed port could not build its int8 kernels)."""
+    import fnmatch
+    import tomllib
+
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"]["llmrankers_tpu_torch"]
+    for sub in ("csrc", "prompts"):
+        for name in os.listdir(os.path.join(PKG, sub)):
+            assert any(fnmatch.fnmatch(f"{sub}/{name}", g) for g in globs), name
+
+
 PRESETS = [("T5Config", "tiny"), ("T5Config", "flan_t5_large"),
            ("T5Config", "flan_t5_xl"), ("DecoderConfig", "tiny"),
            ("DecoderConfig", "qwen25_3b")]
@@ -137,6 +166,9 @@ ARGVS = [
      "4096", "--len_buckets", "auto:4", "pairwise", "--method", "heapsort"],
     ["run", "--quantize", "int8", "--dtype", "float32", "listwise", "--window_size", "5"],
     ["pointwise", "--method", "qlm"],
+    ["run", "--model_name_or_path", "random:dec-tiny", "--kv_quantize", "int4",
+     "--prompt_file", "p.toml", "--spec_lookup", "4", "setwise", "--num_child", "19",
+     "--max_completion_tokens", "128", "--prompt_file", "q.toml"],
 ]
 
 

@@ -189,7 +189,7 @@ def test_decoder_engine_unported_options_raise(trees):
     tok = ByteTokenizer(tcfg.vocab_size)
     for kw, item in ((dict(quantize="int8", awq_calib=["p"]), "A9 \\(AWQ\\)"),
                      (dict(quantize="int4", awq_calib=["p"]), "A9 \\(AWQ\\)"),
-                     (dict(kv_quantize="int8"), "A8")):
+                     (dict(spec_lookup=4), "A8\\(b\\)")):
         with pytest.raises(NotImplementedError, match=item):
             ScoringEngine("decoder", tcfg, model, tok, **kw)
     eng = ScoringEngine("decoder", tcfg, model, tok)

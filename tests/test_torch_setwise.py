@@ -144,8 +144,8 @@ def test_cli_reranks_trec_run(tmp_path, capsys):
 
 def test_cli_raises_on_unported_flags(tmp_path):
     _write_inputs(tmp_path)
-    args = trun.parse_args(_argv(tmp_path, "--device", "cpu", "--kv_quantize", "int8"))
-    with pytest.raises(NotImplementedError, match="A8"):
+    args = trun.parse_args(_argv(tmp_path, "--device", "cpu", "--spec_lookup", "4"))
+    with pytest.raises(NotImplementedError, match="A8\\(b\\)"):
         trun.main(args)
 
 
