@@ -11,16 +11,19 @@ nvcc per source, side by side) and then, one line per phase:
 1. prints the device, and the card's name and power limit from nvidia-smi;
 2. builds ``flash_blhd.cu``, ``int8_fusedq.cu``, ``int4_w4a8.cu`` and
    ``kvq_decode.cu`` and prints the build time and ptxas's registers and
-   spills;
+   spills (the flash kernel per Dh instance, with its stack and dynamic
+   shared memory; a spill store there fails);
 3. B1: holds the flash kernel against its plain PyTorch version at the bf16
    path's shapes (flan-t5-large encoder: B 32, L 512 and 640, H 16, Dh 64,
    a rel-pos bias table of std 1 as in a trained model, right padding, one
    all-padding row that must come out as exact zeros, one causal case with
-   Lq != Lk), checks that a wrong bias (none, or the next head's, key's or
-   row's) fails the same gate, and times kernel and plain version;
+   Lq != Lk, a ragged causal case with Lq 40 and Lk 200, and t5-tiny's H 4,
+   Dh 16 at L 256), checks that a wrong bias (none, or the next head's,
+   key's or row's) and K/V read one key tile late fail the same gate, and
+   times kernel and plain version;
 4. B2: the packed flash at flan-t5-xl's encoder shape (B 32, L 640, H 32,
    Dh 64, qkv [32, 640, 6144]) against its plain version, with k read at
-   q's offset and v at k's as negative controls;
+   q's offset, v at k's and K/V one key tile late as negative controls;
 5. B3: the W8A8 GEMM at the xl sites qkv and wo (wo with and without a
    residual, f32 column scales) and at Qwen2.5-3B's int8 sites wq/wo, wk/wv
    and w_down (bf16 column scales, read in place), every element within one
@@ -34,7 +37,11 @@ nvcc per source, side by side) and then, one line per phase:
    causal batch, B 32, L 640, one all-padding row; (b) a shared-prefix
    suffix, Lq 512 over keys [prefix 256 | suffix 512] with padding holes,
    causal offset 256; (c) a sliding window of 128 at L 640, H 32, KV 8;
-   KV head h % KV, causal offset 0 and no window must fail the gate;
+   (d) Rank-R1's prompt bucket, B 4, L 4096, left padding to 2048-4096
+   tokens; checked only: (e) ragged, Lq 48 over Lk 1000 with holes, (f)
+   every key tile but one padding; KV head h % KV, K/V one key tile late,
+   causal offset 0 and no window must fail the gate; each case prints the
+   share of key tiles the kernel loads (``flash.key_tiles``);
 8. B6: the gated pair over two separate int8 weights at Qwen2.5-3B's FFN
    ([20480, 2048] x 2 x [2048, 11008], silu), one bf16 ulp plus a silu
    allowance; gate and up swapped must fail; the two bf16 products'
@@ -249,20 +256,61 @@ def phase_device():
     return name
 
 
+def _ptxas_functions(log: str):
+    """[(mangled name, registers, spill store bytes, stack bytes)] from
+    ptxas's -v output, one per compiled kernel."""
+    out, name, spills = [], None, 0
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name, spills = ln.split("'")[1], 0
+        elif " bytes spill stores" in ln:
+            spills = int(ln.split(" bytes spill stores")[0].split(",")[-1])
+        elif "Used " in ln and name is not None:
+            regs = int(ln.split("Used ")[1].split(" registers")[0])
+            stack = (int(ln.split(" bytes cumulative stack")[0].split(",")[-1])
+                     if "cumulative stack" in ln else 0)
+            out.append((name, regs, spills, stack))
+            name = None
+    return out
+
+
 def phase_build():
     tic = time.perf_counter()
     _build.load_all(SOURCES)
     dt = time.perf_counter() - tic
     parts = []
     for name in SOURCES:
-        log = _build.build_log(name).splitlines()
-        regs = [ln.split("Used ")[1].split(",")[0] for ln in log if "Used " in ln]
-        spills = [int(ln.split(" bytes spill stores")[0].split(",")[-1])
-                  for ln in log if " bytes spill stores" in ln]
-        parts.append(f"{name}.cu: {', '.join(regs) or 'already built'}; "
-                     f"spill stores {max(spills, default=0)} bytes")
+        funcs = _ptxas_functions(_build.build_log(name))
+        if name == "flash_blhd":
+            parts.append(_flash_build_text(funcs))
+            continue
+        parts.append(f"{name}.cu: {', '.join(str(f[1]) for f in funcs) or 'already built'}"
+                     f" registers; spill stores {max((f[2] for f in funcs), default=0)} bytes")
     print(f"[2/{N_PHASES}] built {len(SOURCES)} sources with nvcc side by side in "
           f"{dt:.2f} s (ptxas per kernel: {' | '.join(parts)})")
+
+
+def _flash_build_text(funcs) -> str:
+    """The flash kernel's instances (one per Dh): registers at launch (the
+    consumers take 232 and the producer 40 through setmaxnreg), spills,
+    stack, and the dynamic shared memory at the main paths' shapes, which
+    the kernel's own plan must match. Raises on a spill store."""
+    lib = flash._lib()
+    per_dh = []
+    for mangled, regs, spills, stack in funcs:
+        dh = (mangled.split("flash_blhd_kernelILi")[1].split("E")[0]
+              if "flash_blhd_kernelILi" in mangled else "?")
+        per_dh.append(f"Dh {dh}: {regs} regs, {spills} B spill stores, {stack} B stack")
+        if spills:
+            raise AssertionError(f"flash kernel Dh {dh} spills {spills} bytes: {funcs}")
+    smem = []
+    for dh, lk, bias in ((64, 640, True), (128, 640, False), (128, 4096, False), (16, 256, True)):
+        want = lib.flash_smem_bytes(dh, lk, int(bias))
+        if flash._smem_bytes(dh, lk, bias) != want:
+            raise AssertionError(f"flash._smem_bytes({dh}, {lk}, {bias}) != kernel's {want}")
+        smem.append(f"Dh {dh} Lk {lk}{' bias' if bias else ''} {want} B")
+    return (f"flash_blhd.cu: {'; '.join(per_dh) or 'already built'}; dynamic shared "
+            f"memory {', '.join(smem)}")
 
 
 def _attn_case(gen, B, Lq, Lk, causal, table, cfg):
@@ -284,8 +332,8 @@ def _attn_case(gen, B, Lq, Lk, causal, table, cfg):
     if got[-1].count_nonzero().item() != 0:
         raise AssertionError("all-padding row is not exactly 0")
 
-    def err_against(b):  # max |diff| on the rows with a valid key
-        want = flash.flash_mha_blhd_plain(q, k, v, H, bias=b, **kw)
+    def err_against(b, kk=k, vv=v):  # max |diff| on the rows with a valid key
+        want = flash.flash_mha_blhd_plain(q, kk, vv, H, bias=b, **kw)
         return (got[:-1].float() - want[:-1].float()).abs().max().item()
 
     err = err_against(bias)
@@ -298,17 +346,20 @@ def _attn_case(gen, B, Lq, Lk, causal, table, cfg):
                 "next key": bias.roll(1, 3), "next row": bias.roll(1, 2)}
     ctl = {name: err_against(None if b is None else b.contiguous())
            for name, b in controls.items()}
+    # The ring's own fault: K and V read one key tile late.
+    ctl["K/V one tile late"] = err_against(bias, *(x.roll(-flash.BLOCK_K, 1) for x in (k, v)))
     blind = [name for name, e in ctl.items() if not e > KERNEL_TOL]
     if blind:
-        raise AssertionError(f"gate {KERNEL_TOL} passes a wrong bias {blind}: {ctl}")
-    flops = 4 * Dh * H * Lq * int(mask.sum())  # every query row, each valid key
+        raise AssertionError(f"gate {KERNEL_TOL} passes a wrong bias or tile {blind}: {ctl}")
+    vis = _visible(mask, Lq, Lk) if causal else mask.bool()[:, None, :].expand(B, Lq, Lk)
+    flops = 4 * Dh * H * int(vis.sum())  # QK^T and PV over the visible pairs
 
     def library_ms():
         heads = [x.unflatten(-1, (H, Dh)).transpose(1, 2) for x in (q, k, v)]
         pen = ((1 - mask) * NEG).to(q.dtype)[:, None, None, :]
         return _sdpa_ms(*heads, bias + pen, 1.0)
 
-    return {"err": err, "ctl": min(ctl.values()), "flops": flops,
+    return {"err": err, "ctl": ctl, "flops": flops,
             "bound": _bound(flops, _nbytes(q, k, v, got, bias, mask), H100_BF16_FLOPS),
             "kernel": lambda: flash.flash_mha_blhd(q, k, v, H, bias=bias, **kw),
             "plain": lambda: flash.flash_mha_blhd_plain(q, k, v, H, bias=bias, **kw),
@@ -327,19 +378,33 @@ def phase_kernel(cfg):
     table = trained_scale_bias(cfg, gen)
     cases = [_attn_case(gen, B, Lq, Lk, causal, table, cfg)
              for B, Lq, Lk, causal in ((32, 512, 512, False), (32, 512, 640, True),
-                                       (32, 640, 640, False))]
-    errs, ctls = [c["err"] for c in cases], [c["ctl"] for c in cases]
+                                       (4, 40, 200, True), (32, 640, 640, False))]
+    # t5-tiny's width (H 4, Dh 16): the smallest instance of the kernel.
+    tiny = T5Config.tiny()
+    cases.insert(-1, _attn_case(gen, 8, 256, 256, False, trained_scale_bias(tiny, gen), tiny))
+    errs = [c["err"] for c in cases]
+    ctls = {}
+    for c in cases:
+        for name, e in c["ctl"].items():
+            ctls[name] = min(e, ctls.get(name, e))
     timed = cases[-1]  # B 32, L 640
     ms, plain_ms, runs = _in_turns(timed["kernel"], timed["plain"])
     lib, bound = timed["library_ms"](), timed["bound"]
     print(f"[3/{N_PHASES}] B1 flash kernel vs plain, bf16, H16 Dh64, rel-pos bias "
           f"table of std 1: max |diff| {', '.join(f'{e:.4g}' for e in errs)} (L512, "
-          f"causal 512x640, L640; tol {KERNEL_TOL}); against a wrong bias (none, next "
-          f"head, key or row) at least {min(ctls):.4g}, over tol; all-padding rows "
-          f"exactly 0; at B32 L640 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA "
+          f"causal 512x640, ragged causal 40x200, t5-tiny H4 Dh16 L256, L640; tol "
+          f"{KERNEL_TOL}); controls, least over the cases: "
+          + ", ".join(f"{n} {e:.4g}" for n, e in ctls.items())
+          + f", all over tol; all-padding rows exactly 0; at B32 L640 kernel {ms:.4f} "
+          f"ms ({_tflops(timed['flops'], ms):.1f} TFLOP/s), plain {plain_ms:.4f} ms (CUDA "
           f"events, mean of 20 after warm-up, two runs each: {_turns_text(runs)}); "
           f"bound {bound[0]:.4f} ms ({bound[1]}); SDPA with the float mask {lib:.4f} ms")
-    return _record(max(errs), ms, plain_ms, bound, lib)
+    return _record(max(errs), ms, plain_ms, bound, lib,
+                   tflops=_tflops(timed["flops"], ms))
+
+
+def _tflops(flops, ms) -> float:
+    return flops / ms / 1e9
 
 
 def phase_packed(gen):
@@ -372,29 +437,32 @@ def phase_packed(gen):
     if not err <= KERNEL_TOL:
         raise AssertionError(f"packed kernel vs plain max |diff| {err} > {KERNEL_TOL}")
     qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    late = [x.roll(-flash.BLOCK_K, 1) for x in (kb, vb)]
     ctl = {"k at q's offset": err_against(torch.cat([qb, qb, vb], -1)),
-           "v at k's offset": err_against(torch.cat([qb, kb, kb], -1))}
+           "v at k's offset": err_against(torch.cat([qb, kb, kb], -1)),
+           "K/V one tile late": err_against(torch.cat([qb, *late], -1))}
     blind = [name for name, e in ctl.items() if not e > KERNEL_TOL]
     if blind:
         raise AssertionError(f"gate {KERNEL_TOL} passes a misread qkv {blind}: {ctl}")
-    del q, k, v, qb, kb, vb
+    del q, k, v, qb, kb, vb, late
     ms, plain_ms, runs = _in_turns(lambda: flash.flash_mha_packed(qkv, H, **kw),
                                    lambda: flash.flash_mha_packed_plain(qkv, H, **kw), 5)
     # Attention: 2*Dh multiply-adds for QK^T and 2*Dh for PV per (head,
     # query, valid key) pair.
-    bound = _bound(4 * Dh * H * L * int(mask.sum()), _nbytes(qkv, got, bias, mask),
-                   H100_BF16_FLOPS)
+    flops = 4 * Dh * H * L * int(mask.sum())
+    bound = _bound(flops, _nbytes(qkv, got, bias, mask), H100_BF16_FLOPS)
     heads = [x.unflatten(-1, (H, Dh)).transpose(1, 2)
              for x in qkv.unflatten(-1, (3, HD)).unbind(2)]
     lib = _sdpa_ms(*heads, bias + ((1 - mask) * NEG).to(qkv.dtype)[:, None, None, :], 1.0)
-    ctl_k, ctl_v = ctl.values()
+    ctl_k, ctl_v, ctl_late = ctl.values()
     print(f"[4/{N_PHASES}] B2 packed flash vs plain, bf16, qkv [{B}, {L}, {3 * HD}] "
           f"(xl: H {H}, Dh {Dh}), rel-pos table of std 1, right padding: max |diff| "
           f"{err:.4g} (tol {KERNEL_TOL}); k read at q's offset {ctl_k:.4g}, v at k's "
-          f"{ctl_v:.4g}, both over tol; all-padding row exactly 0; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms (CUDA events, two runs each: {_turns_text(runs)}); "
+          f"{ctl_v:.4g}, K/V one key tile late {ctl_late:.4g}, all over tol; all-padding "
+          f"row exactly 0; kernel {ms:.4f} ms ({_tflops(flops, ms):.1f} TFLOP/s), plain "
+          f"{plain_ms:.4f} ms (CUDA events, two runs each: {_turns_text(runs)}); "
           f"bound {bound[0]:.4f} ms ({bound[1]}); SDPA with the float mask {lib:.4f} ms")
-    return _record(err, ms, plain_ms, bound, lib)
+    return _record(err, ms, plain_ms, bound, lib, tflops=_tflops(flops, ms))
 
 
 def _int8_operands(gen, M, K, N):
@@ -661,14 +729,21 @@ def phase_int8_matmul(gen):
                    yardstick="torch._int_mm, the int32 product without the scales")
 
 
-def _key_mask(gen, B, Lq, Lk, layout):
-    """int32 [B, Lk]: left padding (a decoder prompt batch), or a
-    right-padded prefix then a right-padded suffix (the shared path, with
-    holes between them); the last row is all padding."""
+def _key_mask(gen, B, Lq, Lk, layout, pad_row=True):
+    """int32 [B, Lk]: left padding (a decoder prompt batch); a right-padded
+    prefix then a right-padded suffix (the shared path, with holes between
+    them); or keys in one key tile only (every other tile is padding). With
+    ``pad_row`` the last row is all padding."""
     dev = "cuda"
     if layout == "left":
         lens = torch.randint(Lk // 2, Lk + 1, (B,), generator=gen, device=dev)
         mask = torch.arange(Lk, device=dev)[None, :] >= (Lk - lens)[:, None]
+    elif layout == "one tile":
+        t0 = 2 * flash.BLOCK_K
+        mask = torch.zeros(B, Lk, dtype=torch.bool, device=dev)
+        mask[:, t0:t0 + flash.BLOCK_K] = torch.rand(B, flash.BLOCK_K, generator=gen,
+                                                    device=dev) < 0.5
+        mask[:, t0] = True
     else:
         Lp = Lk - Lq
         plen = torch.randint(Lp // 2, Lp + 1, (B,), generator=gen, device=dev)
@@ -676,7 +751,8 @@ def _key_mask(gen, B, Lq, Lk, layout):
         mask = torch.cat([torch.arange(Lp, device=dev)[None, :] < plen[:, None],
                           torch.arange(Lq, device=dev)[None, :] < slen[:, None]], dim=1)
     mask = mask.int()
-    mask[-1] = 0
+    if pad_row:
+        mask[-1] = 0
     return mask.contiguous()
 
 
@@ -690,7 +766,18 @@ def _visible(mask, Lq, Lk, window=None):
     return vis[None] & mask.bool()[:, None, :]
 
 
-def _b5_case(gen, B, Lq, Lk, H, KV, layout, window=None, Dh=128):
+def _tile_share(mask, Lq, Lk, window=None) -> float:
+    """Share of the causal kernel's (query block, key tile) pairs that it
+    loads, from ``flash.key_tiles`` (the list each block builds) over the
+    batch rows of ``mask``: the rest are padding or outside the band."""
+    rows = mask.cpu().tolist()
+    starts = range(0, Lq, flash.BLOCK_Q)
+    loaded = sum(len(flash.key_tiles(r, Lq, Lk, q0, True, window))
+                 for r in rows for q0 in starts)
+    return loaded / (len(rows) * len(starts) * -(-Lk // flash.BLOCK_K))
+
+
+def _b5_case(gen, B, Lq, Lk, H, KV, layout, window=None, Dh=128, pad_row=True):
     """B5 on q/k/v as the decoder gives them: [B, H, L, Dh] transposed
     views of the [B, L, H*Dh] projections. Returns the error, the controls'
     errors, the work, the bound, and closures that run the kernel, the plain
@@ -699,7 +786,7 @@ def _b5_case(gen, B, Lq, Lk, H, KV, layout, window=None, Dh=128):
     q = torch.randn(B, Lq, H, Dh, generator=gen, device=dev).bfloat16().transpose(1, 2)
     k = torch.randn(B, Lk, KV, Dh, generator=gen, device=dev).bfloat16().transpose(1, 2)
     v = torch.randn(B, Lk, KV, Dh, generator=gen, device=dev).bfloat16().transpose(1, 2)
-    mask = _key_mask(gen, B, Lq, Lk, layout)
+    mask = _key_mask(gen, B, Lq, Lk, layout, pad_row)
     kw = dict(kv_mask=mask, causal=True, scale=Dh**-0.5, window=window)
     got = flash.flash_mha(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -720,7 +807,9 @@ def _b5_case(gen, B, Lq, Lk, H, KV, layout, window=None, Dh=128):
         raise AssertionError(f"B5 kernel vs plain max |diff| {err} > {KERNEL_TOL}")
     G = H // KV
     ctl = {"KV head h % KV": err_against(flash.flash_mha_plain(
-        q, k.repeat(1, G, 1, 1), v.repeat(1, G, 1, 1), **kw))}
+        q, k.repeat(1, G, 1, 1), v.repeat(1, G, 1, 1), **kw)),
+           "K/V one tile late": err_against(flash.flash_mha_plain(
+               q, k.roll(-flash.BLOCK_K, 2), v.roll(-flash.BLOCK_K, 2), **kw))}
     if Lk != Lq:
         cols = torch.arange(Lk, device=dev)[None, :] > torch.arange(Lq, device=dev)[:, None]
         off0 = torch.where(cols, NEG, 0.0)[None, None].expand(1, H, Lq, Lk)
@@ -733,7 +822,7 @@ def _b5_case(gen, B, Lq, Lk, H, KV, layout, window=None, Dh=128):
         raise AssertionError(f"B5 gate {KERNEL_TOL} passes {blind}: {ctl}")
     flops = 4 * Dh * H * int(vis.sum())  # QK^T and PV over the visible pairs
     sdpa_mask = torch.where(vis, 0.0, NEG).to(q.dtype)[:, None]  # [B, 1, Lq, Lk]
-    return {"err": err, "ctl": ctl, "flops": flops,
+    return {"err": err, "ctl": ctl, "flops": flops, "tiles": _tile_share(mask, Lq, Lk, window),
             "bound": _bound(flops, _nbytes(q, k, v, got, mask), H100_BF16_FLOPS),
             "kernel": lambda: flash.flash_mha(q, k, v, **kw),
             "plain": lambda: flash.flash_mha_plain(q, k, v, **kw),
@@ -741,32 +830,45 @@ def _b5_case(gen, B, Lq, Lk, H, KV, layout, window=None, Dh=128):
 
 
 def phase_flash_mha(gen):
-    """B5 at Qwen2.5-3B's attention shapes (c: a Mistral-like window)."""
+    """B5 at Qwen2.5-3B's attention shapes (c: a Mistral-like window; d:
+    Rank-R1's 4096 prompt bucket), timed; then checked only: (e) ragged, Lq
+    48 below one warpgroup's rows and Lk 1000 not a whole number of key
+    tiles; (f) every key tile but one padding."""
     cfg = DecoderConfig.qwen25_3b()
     H, KV = cfg.num_attention_heads, cfg.num_key_value_heads
-    cases = {"a": (32, 640, 640, H, KV, "left", None),
-             "b": (32, 512, 256 + 512, H, KV, "holes", None),
-             "c": (32, 640, 640, 32, 8, "left", 128)}
+    cases = {"a": (32, 640, 640, H, KV, "left", None, True),
+             "b": (32, 512, 256 + 512, H, KV, "holes", None, True),
+             "c": (32, 640, 640, 32, 8, "left", 128, True),
+             "d": (4, 4096, 4096, H, KV, "left", None, False),
+             "e": (4, 48, 1000, H, KV, "holes", None, True),
+             "f": (8, 640, 640, H, KV, "one tile", None, True)}
     out, parts = {}, []
-    for name, (B, Lq, Lk, h, kv, layout, window) in cases.items():
-        case = _b5_case(gen, B, Lq, Lk, h, kv, layout, window)
+    for name, (B, Lq, Lk, h, kv, layout, window, pad_row) in cases.items():
+        case = _b5_case(gen, B, Lq, Lk, h, kv, layout, window, pad_row=pad_row)
         err, ctl, bound = case["err"], case["ctl"], case["bound"]
-        ms, plain_ms, runs = _in_turns(case["kernel"], case["plain"], 3)
-        lib = case["library_ms"]()
-        out[name] = _record(err, ms, plain_ms, bound, lib)
+        text = (f"({name}) B{B} Lq{Lq} Lk{Lk} H{h} KV{kv} {layout} padding"
+                f"{f' window {window}' if window else ''}: key tiles loaded "
+                f"{100 * case['tiles']:.1f}%; max |diff| {err:.4g}; controls "
+                + ", ".join(f"{c} {e:.4g}" for c, e in ctl.items()))
+        if name in "abcd":
+            ms, plain_ms, runs = _in_turns(case["kernel"], case["plain"], 3)
+            lib = case["library_ms"]()
+            tf = _tflops(case["flops"], ms)
+            out[name] = _record(err, ms, plain_ms, bound, lib, tflops=tf)
+            text += (f"; kernel {ms:.4f} ms ({tf:.1f} TFLOP/s), plain {plain_ms:.4f} ms "
+                     f"({_turns_text(runs)}), bound {bound[0]:.4f} ms ({bound[1]}), "
+                     f"SDPA {lib:.4f} ms")
+        else:
+            out[name] = {"max_abs_err": err}
+        parts.append(text)
         del case
-        parts.append(
-            f"({name}) B{B} Lq{Lq} Lk{Lk} H{h} KV{kv} {layout} padding"
-            f"{f' window {window}' if window else ''}: max |diff| {err:.4g}; controls "
-            + ", ".join(f"{c} {e:.4g}" for c, e in ctl.items())
-            + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({_turns_text(runs)}), "
-            f"bound {bound[0]:.4f} ms ({bound[1]}), SDPA {lib:.4f} ms")
         torch.cuda.empty_cache()
     print(f"[7/{N_PHASES}] B5 GQA flash vs plain, bf16, Dh 128, scale Dh^-0.5, causal "
           f"(tol {KERNEL_TOL} on rows with a valid key; queries that see no key "
           f"exactly 0; every control over tol): " + "; ".join(parts))
     rec = dict(out["a"])  # the dec_labels shape stands for B5 in the summary
     rec["max_abs_err"] = max(r["max_abs_err"] for r in out.values())
+    rec["cases"] = {name: r for name, r in out.items() if name != "a"}
     return rec
 
 

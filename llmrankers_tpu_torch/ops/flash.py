@@ -5,8 +5,9 @@ Counterparts of ``llmrankers_tpu/ops/flash.py::flash_mha_blhd``,
 launches the hand-written kernel ``csrc/flash_blhd.cu`` (bf16, ``sm_90a``)
 or raises; on a CPU tensor it runs its plain version, which computes what
 the kernel computes with the TPU kernel's masking constants, so fully masked
-rows come out as zeros. The kernel addresses every tensor by batch, head and
-row strides:
+rows come out as zeros. The kernel reads q, k, v and the bias by TMA
+through 4-D tensor maps that the wrapper's checks admit (:func:`_tma_strides`):
+every tensor is addressed by its batch, head and row strides:
 
 - :func:`flash_mha_blhd` on the ``[B, L, H*Dh]`` projection layout (head
   stride Dh);
@@ -71,6 +72,10 @@ def flash_mha_blhd_plain(
 
 
 _STRIDES = ctypes.c_longlong * 12
+# The kernel's tiles (csrc/flash_blhd.cu): query rows and keys per block and
+# tile, ring depth, and the shared memory a block may take on sm_90.
+BLOCK_Q, BLOCK_K, STAGES = 128, 64, 4
+MAX_SMEM = 232448
 
 
 def _lib() -> ctypes.CDLL:
@@ -82,17 +87,64 @@ def _lib() -> ctypes.CDLL:
             [ptr] * 6 + [i32] * 6 + [_STRIDES, ctypes.c_float, i32, i32, ptr]
         )
         fn.restype = ctypes.c_int
+        lib.flash_smem_bytes.argtypes = [i32, i32, i32]
+        lib.flash_smem_bytes.restype = i32
     return lib
 
 
-def _check_rows(name: str, x: torch.Tensor) -> None:
-    """The kernel reads rows with 16-byte loads: unit last stride, every
-    other stride in whole 8-element groups, a 16-byte aligned base."""
-    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]):
-        raise ValueError(f"{name}: rows must be contiguous with strides "
-                         f"divisible by 8, got strides {tuple(x.stride())}")
+def _smem_bytes(dh: int, lk: int, has_bias: bool) -> int:
+    """Dynamic shared memory of one block, as ``smem_plan`` in the kernel
+    lays it out: Q, the ring (K, V and the bias tile per stage), the
+    mbarriers, one validity bit per key of whole key tiles, the tile list,
+    and 1024 bytes to align the base."""
+    tiles = -(-lk // BLOCK_K)
+    ring = STAGES * (2 * BLOCK_K * dh * 2 + (BLOCK_Q * BLOCK_K * 2 if has_bias else 0))
+    return (BLOCK_Q * dh * 2 + ring + 8 * (2 * STAGES + 1) + 4 * tiles * (BLOCK_K // 32)
+            + 4 * tiles + 4 + 1024)
+
+
+def _tma_strides(name: str, x: torch.Tensor) -> tuple:
+    """(batch, head, row) strides of a [B, H, L, Dh] view, in elements, as
+    the kernel's 4-D tensor maps take them, or raise on what TMA cannot
+    describe: the last stride must be 1, the others whole 16 bytes (8
+    elements) and below 2^40 bytes, the base 16-byte aligned. The stride of a
+    dimension of size 1 is never stepped, so it is given as Dh."""
+    if x.stride(-1) != 1:
+        raise ValueError(f"{name}: rows must be contiguous (last stride 1), "
+                         f"got strides {tuple(x.stride())}")
+    out = []
+    for size, st in zip(x.shape[:3], x.stride()[:3]):
+        st = x.shape[3] if size == 1 else st
+        if st <= 0 or st % 8 or 2 * st >= 2**40:
+            raise ValueError(f"{name}: TMA needs strides of whole 16 bytes (a multiple "
+                             f"of 8 elements, positive, below 2^40 bytes), got "
+                             f"strides {tuple(x.stride())}")
+        out.append(st)
     if x.data_ptr() % 16:
-        raise ValueError(f"{name}: base pointer must be 16-byte aligned")
+        raise ValueError(f"{name}: base pointer must be 16-byte aligned for TMA")
+    return tuple(out)
+
+
+def key_tiles(mask_row, lq: int, lk: int, q0: int, causal: bool = False,
+              window: Optional[int] = None):
+    """The key tiles that the block of query rows [q0, q0 + BLOCK_Q) loads,
+    as the kernel lists them: inside its causal and window range and holding
+    a valid key (``mask_row`` [Lk] {0,1}, or None for all valid); each as
+    (tile index, every key of the tile valid)."""
+    valid = [True] * lk if mask_row is None else [bool(x) for x in mask_row]
+    t_begin, t_end = 0, -(-lk // BLOCK_K)
+    if causal:
+        off = lk - lq
+        t_end = -(-min(lk, max(0, q0 + BLOCK_Q + off)) // BLOCK_K)
+        if window:
+            t_begin = max(0, q0 + off - window + 1) // BLOCK_K
+    out = []
+    for t in range(t_begin, t_end):
+        keys = [valid[c] if c < lk else False
+                for c in range(t * BLOCK_K, (t + 1) * BLOCK_K)]
+        if any(keys):
+            out.append((t, all(keys)))
+    return out
 
 
 def flash_mha_blhd(
@@ -111,7 +163,9 @@ def flash_mha_blhd(
     kernel on the current stream, without synchronising, and add one to
     ``flash_mha_blhd.launches``; what the kernel does not take raises:
     dtype other than bf16, Dh not a multiple of 16 or above 128, a bias of
-    batch other than 1 or not contiguous, a mask other than int32."""
+    batch other than 1 or not contiguous, a mask other than int32, strides
+    or bases TMA cannot describe (:func:`_tma_strides`), a bias with Lk not a
+    multiple of 8, or an Lk whose key bits overflow shared memory."""
     if q.device.type == "cpu":
         return flash_mha_blhd_plain(q, k, v, num_heads, kv_mask=kv_mask,
                                     causal=causal, bias=bias, scale=scale)
@@ -157,11 +211,12 @@ def _launch_bhld(q, k, v, out, kv_mask, causal, bias, scale, window) -> None:
                          f"v {tuple(v.shape)} do not match (K/V heads must divide H)")
     if window is not None and (not causal or window < 1):
         raise ValueError(f"window {window} needs causal attention and window >= 1")
+    strides = []
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
         if x.device != q.device or x.dtype != torch.bfloat16:
             raise ValueError(f"{name}: flash kernel takes bf16 on {q.device}, "
                              f"got {x.dtype} on {x.device}")
-        _check_rows(name, x)
+        strides += _tma_strides(name, x)
     if kv_mask is not None and (
         kv_mask.shape != (B, Lk) or kv_mask.dtype != torch.int32
         or kv_mask.device != q.device or not kv_mask.is_contiguous()
@@ -175,9 +230,16 @@ def _launch_bhld(q, k, v, out, kv_mask, causal, bias, scale, window) -> None:
                 or bias.device != q.device or not bias.is_contiguous()):
             raise ValueError(f"bias must be a contiguous {q.dtype} "
                              f"[1, {H}, {Lq}, {Lk}] tensor on q's device")
+        if Lk % 8 or bias.data_ptr() % 16:
+            raise ValueError(f"bias: TMA needs Lk a multiple of 8 (rows of whole 16 "
+                             f"bytes) and a 16-byte aligned base, got Lk {Lk}")
+    smem = _smem_bytes(Dh, Lk, bias is not None)
+    if smem > MAX_SMEM:
+        raise ValueError(f"flash kernel: Dh {Dh}, Lk {Lk}"
+                         f"{' with a bias' if bias is not None else ''} needs {smem} "
+                         f"bytes of shared memory, above {MAX_SMEM}")
     if out.numel() == 0:
         return
-    strides = _STRIDES(*(s for x in (q, k, v, out) for s in x.stride()[:3]))
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -186,9 +248,13 @@ def _launch_bhld(q, k, v, out, kv_mask, causal, bias, scale, window) -> None:
             None if kv_mask is None else kv_mask.data_ptr(),
             None if bias is None else bias.data_ptr(),
             out.data_ptr(),
-            B, H, Lq, Lk, Dh, H // KV, strides,
+            B, H, Lq, Lk, Dh, H // KV, _STRIDES(*strides),
             float(scale), int(causal), int(window or 0), stream,
         )
+    if rc == -1000:
+        raise RuntimeError("flash kernel: the driver has no cuTensorMapEncodeTiled")
+    if rc < 0:
+        raise RuntimeError(f"flash kernel: tensor map encoding failed (CUresult {-rc})")
     if rc != 0:
         raise RuntimeError(f"flash kernel launch failed: CUDA error {rc}")
 

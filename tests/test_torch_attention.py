@@ -271,3 +271,131 @@ def test_flash_mha_rejects_window_without_causal():
         tflash.flash_mha(q, q, q, window=2)
     with pytest.raises(ValueError, match="no kernel for device"):
         tflash.flash_mha(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+# --- the flash kernel's host-side plan (TMA tensor maps, shared memory, key
+# tiles): pure Python, exercised on the CPU on the views the wrappers build.
+
+def _bhld_views(B=2, L=256, H=4, KV=2, Dh=64):
+    """q/k/v/out as flash_mha gets them from the decoder: [B, H, L, Dh]
+    transposed views of the [B, L, H, Dh] projections."""
+    q = torch.zeros(B, L, H, Dh, dtype=torch.bfloat16).transpose(1, 2)
+    k = torch.zeros(B, L, KV, Dh, dtype=torch.bfloat16).transpose(1, 2)
+    return q, k, k.clone(memory_format=torch.preserve_format), torch.empty_like(q)
+
+
+def test_tma_strides_of_the_wrappers_views():
+    B, L, H, Dh = 2, 96, 4, 64
+    HD = H * Dh
+    qkv = torch.zeros(B, L, 3 * HD, dtype=torch.bfloat16)
+    for x in tflash._split_packed(qkv):  # flash_mha_packed's views, then _launch's
+        view = x.unflatten(-1, (H, Dh)).transpose(1, 2)
+        assert tflash._tma_strides("x", view) == (L * 3 * HD, Dh, 3 * HD)
+    q, k, _, _ = _bhld_views(B, L, H, 2, 128)  # flash_mha's transposed views
+    assert tflash._tma_strides("q", q) == (L * H * 128, 128, H * 128)
+    assert tflash._tma_strides("k", k) == (L * 2 * 128, 128, 2 * 128)
+    kc = torch.cat([k, k], dim=2)  # the prefix path's concatenated K
+    assert tflash._tma_strides("k", kc) == (2 * 2 * L * 128, 2 * L * 128, 128)
+
+
+def test_tma_strides_give_size_one_dims_dh():
+    x = torch.zeros(1, 1, 40, 16, dtype=torch.bfloat16).as_strided((1, 1, 40, 16),
+                                                                   (3, 5, 16, 1))
+    assert tflash._tma_strides("x", x) == (16, 16, 16)
+
+
+@pytest.mark.parametrize("bad, match", [
+    ("last", "last stride 1"), ("row", "whole 16 bytes"), ("base", "16-byte aligned")])
+def test_tma_strides_reject_what_tma_cannot_describe(bad, match):
+    base = torch.zeros(2, 4, 64, 72, dtype=torch.bfloat16)
+    x = {"last": base[..., ::2],  # columns 2 apart
+         "row": torch.zeros(2, 4, 40, 68, dtype=torch.bfloat16)[..., :64],  # row stride 68
+         "base": base[..., 4:68]}[bad]  # 8 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match=match):
+        tflash._tma_strides("x", x)
+
+
+def test_smem_bytes_follow_the_kernels_plan():
+    # The kernel's own smem_plan gives these (chip_smoke.py phase 2 holds
+    # _smem_bytes to flash_smem_bytes on the card at the same shapes).
+    assert tflash._smem_bytes(64, 640, True) == 148676
+    assert tflash._smem_bytes(128, 640, False) == 165060
+    assert tflash._smem_bytes(128, 4096, False) == 165708
+    assert tflash._smem_bytes(16, 256, True) == 87164
+    assert tflash._smem_bytes(128, 4096, True) <= tflash.MAX_SMEM
+    assert tflash._smem_bytes(128, 2**19, True) > tflash.MAX_SMEM
+
+
+@pytest.mark.parametrize("case, match", [
+    ("bias_lk", "multiple of 8"), ("smem", "shared memory"), ("layout", "whole 16 bytes"),
+    ("dh", "Dh % 16")])
+def test_launch_raises_before_building_on_what_the_kernel_does_not_take(case, match):
+    B, H, KV, L, Dh = 2, 4, 2, 256, 64
+    q, k, v, out = _bhld_views(B, L, H, KV, Dh)
+    bias = None
+    if case == "bias_lk":
+        q, k, v, out = _bhld_views(B, 100, H, KV, Dh)
+        q, out = q[:, :, :96], out[:, :, :96]
+        k, v = k[:, :, :100], v[:, :, :100]
+        bias = torch.zeros(1, H, 96, 100, dtype=torch.bfloat16)
+    elif case == "smem":
+        Lk = 2**19  # rows 8 elements apart over one small buffer: the checks only
+        k = v = torch.zeros(Lk * 8 + 128, dtype=torch.bfloat16).as_strided(
+            (1, 1, Lk, 128), (Lk * 8, Lk * 8, 8, 1))
+        q, out = (torch.zeros(1, 1, 8, 128, dtype=torch.bfloat16) for _ in range(2))
+        bias = torch.zeros(1, 1, 8, Lk, dtype=torch.bfloat16)
+    elif case == "layout":
+        k = torch.zeros(B, KV, L, Dh + 4, dtype=torch.bfloat16)[..., :Dh]
+        v = k
+    elif case == "dh":
+        q, k, v, out = _bhld_views(B, L, H, KV, 24)
+    with pytest.raises(ValueError, match=match):
+        tflash._launch_bhld(q, k, v, out, None, False, bias, 1.0, None)
+
+
+def _visible_pairs(mask_row, lq, lk, causal, window):
+    rows = np.arange(lq)[:, None] + (lk - lq)
+    cols = np.arange(lk)[None, :]
+    vis = np.broadcast_to(np.asarray(mask_row, bool)[None, :], (lq, lk)).copy()
+    if causal:
+        vis &= cols <= rows
+        if window:
+            vis &= rows - cols < window
+    return vis
+
+
+@pytest.mark.parametrize("layout", ["left", "holes", "right_window", "one_tile", "none"])
+def test_key_tiles_cover_every_visible_pair_and_skip_padding(layout):
+    rng = np.random.RandomState(11)
+    BQ, BK = tflash.BLOCK_Q, tflash.BLOCK_K
+    lq, lk, causal, window = 640, 640, True, None
+    if layout == "left":  # a decoder prompt batch row
+        row = (np.arange(lk) >= 390).astype(np.int32)
+    elif layout == "holes":  # prefix 256 | suffix 512, both right-padded
+        lq, lk = 512, 768
+        row = np.concatenate([np.arange(256) < 140, np.arange(512) < 300]).astype(np.int32)
+    elif layout == "right_window":
+        lq, lk, window = 1000, 1000, 128
+        row = (np.arange(lk) < 700).astype(np.int32)
+    elif layout == "one_tile":
+        row = np.zeros(lk, np.int32)
+        row[2 * BK:3 * BK] = rng.rand(BK) < 0.5
+        row[2 * BK] = 1
+    else:  # no mask, T5's bidirectional encoder at a ragged length
+        lq, lk, causal, row = 200, 200, False, None
+    full_row = np.ones(lk, np.int32) if row is None else row
+    vis = _visible_pairs(full_row, lq, lk, causal, window)
+    for q0 in range(0, lq, BQ):
+        tiles = tflash.key_tiles(row, lq, lk, q0, causal, window)
+        listed = {t for t, _ in tiles}
+        need = {c // BK for c in np.nonzero(vis[q0:q0 + BQ].any(0))[0]}
+        assert need <= listed, (q0, need - listed)
+        for t, all_valid in tiles:
+            keys = full_row[t * BK:(t + 1) * BK]
+            assert keys.any()  # no tile without a valid key is loaded
+            assert all_valid == (len(keys) == BK and bool(keys.all()))
+    if layout == "left":  # the tiles wholly in the left padding drop out
+        assert ([t for t, _ in tflash.key_tiles(row, lq, lk, 512, True)]
+                == list(range(390 // BK, lk // BK)))
+    if layout == "one_tile":
+        assert tflash.key_tiles(row, lq, lk, 512, True) == [(2, False)]

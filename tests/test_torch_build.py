@@ -113,12 +113,28 @@ def test_load_all_builds_each_source_and_raises(fresh_build, monkeypatch):
 
 def test_flash_source_serves_the_three_layouts():
     """One hand-written flash source serves B1, B2 and B5: one C entry with
-    batch, head and row strides per tensor, a GQA group and a window."""
+    batch, head and row strides per tensor (turned into TMA tensor maps), a
+    GQA group and a window; both products on wgmma (P from registers, V
+    read MN-major), loads by TMA through an mbarrier ring fed by a producer
+    warpgroup, and no mma.sync left."""
     with open(os.path.join(_build.CSRC_DIR, "flash_blhd.cu")) as f:
         src = f.read()
+    with open(os.path.join(_build.CSRC_DIR, "wgmma_bf16.cuh")) as f:
+        mma = f.read()
     assert 'extern "C" int flash_attn_bf16(' in src
-    for field in ("q_hs", "k_hs", "v_hs", "o_hs", "int group;", "int window;"):
+    assert src.count("__global__") == 1  # one kernel for every layout
+    for field in ("int group;", "int window;", "h / p.group", "o_hs",
+                  "2ull * st[1]", "2ull * st[4]", "2ull * st[7]"):  # q, k, v head strides
         assert field in src
-    assert "h / p.group" in src
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    for ptx in ("cp.async.bulk.tensor.4d", "mbarrier.try_wait.parity",
+                "mbarrier.arrive.expect_tx", "setmaxnreg.dec", "setmaxnreg.inc",
+                "wgmma.fence", "wgmma::ss<kBK>", "wgmma::rs<DH>",
+                "cudaGetDriverEntryPoint", "cuTensorMapEncodeTiled"):
+        assert ptx in src, ptx
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in mma
+    # the register-A form with the B transpose flag set, for every Dh
+    for n in range(16, 129, 16):
+        assert f"m64n{n}k16.f32.bf16.bf16" in mma
+    assert "p, 1, 1, 1;" in mma
+    assert "mma.sync.aligned" not in src  # no Ampere-era tensor-core instruction
     assert "cublas" not in src.lower() and "cudnn" not in src.lower()
