@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the flash kernel of two checkouts in turns on one GPU.
+"""Time the flash kernel (or, with --kvq, the decode-attention kernel B8) of two checkouts in turns on one GPU.
 
 Run from the root of a checkout, with another checkout (for example the
 parent commit, unpacked with ``git archive HEAD | tar -x -C build/parent``)
@@ -28,6 +28,18 @@ object: per case both trees' times, SDPA's, the bound (the larger of the
 bf16 operations over the visible pairs at 989 TFLOP/s and the bytes read
 and written once at 3.35 TB/s) and this tree's TFLOP/s; the line before it
 gives the card's name and power limit. It imports nothing of JAX.
+
+With ``--kvq`` it times the decode-attention kernel B8
+(``ops/kvq_attention.py::kvq_decode_attention``) instead, at the generate
+phase's shape (B 8, KV 2, G 8, Dh 128, T 2304: a 1536-slot prefix area with
+1200 real, a 640-slot suffix area with per-row lengths, 128 tail slots of
+which 64 are written), int8 and int4, on the device with a cold L2
+(:func:`cold_ms`: the calls over operand sets that together exceed 100 MB,
+cycled, replayed from a captured CUDA graph), beside the warm host-bound
+figure (20 back-to-back calls on one operand set between CUDA events) and
+the wrapper's host time per call; this tree's worker also times SDPA on the
+dequantized cache the same way and checks the kernel against its plain
+version. B8's bound (:func:`kvq_work`) counts only the keys the mask leaves.
 """
 from __future__ import annotations
 
@@ -40,6 +52,187 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BF16_FLOPS, H100_BYTES_PER_S = 989e12, 3.35e12
 NEG = -1e30
+
+
+COLD_BYTES = 100e6  # operand sets per timing cycle must exceed this (L2: 50 MB)
+
+
+def cold_ms(calls, reps=2, iters=5) -> float:
+    """Device ms per call with a cold L2: ``calls`` (one zero-argument
+    callable per operand set, the sets together over ``COLD_BYTES``) are
+    captured ``reps`` times over, in order, in one CUDA graph, which is
+    replayed ``iters`` times between CUDA events. No host work between the
+    launches, and each call finds its operands evicted by the others."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as capture wants
+        for call in calls:
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            for call in calls:
+                call()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps * len(calls))
+
+
+def n_cold_sets(set_bytes: int) -> int:
+    """Operand sets enough to exceed ``COLD_BYTES`` together."""
+    return int(COLD_BYTES // set_bytes) + 1
+
+
+def host_us(call, n=200) -> float:
+    """The host's time per call in microseconds (enqueue only: the queue
+    holds far more than n launches)."""
+    import time
+
+    import torch
+    call()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for _ in range(n):
+        call()
+    dt = time.perf_counter() - tic
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def kvq_inputs(gen, B, KV, G, Dh, T, mode, layout="shared", window=None, prefix=1200,
+               suffix=640, new=128, prompt=3540):
+    """B8's operands at trained-like scales: K/V rows whose norms vary from
+    position to position (log-normal), queries whose scores have a spread of
+    a few units, so attention is peaked and a wrong scale or plane moves the
+    output. The key mask has the decode cache's layout, ``new`` tail slots of
+    which the first half are written, after either (``shared``) a prefix area
+    of min(1536, T // 2) slots with ``prefix`` real and a suffix area with
+    per-row lengths from suffix // 2 to ``suffix``, or (``left``) left-padded
+    prompts of ``prompt`` +- 150 tokens; the last row sees no cache key (only
+    its self term). ``window`` keeps each row's last ``window`` valid keys."""
+    import torch
+    from llmrankers_tpu_torch.engine import generate
+
+    dev = "cuda"
+
+    def rows(*shape):
+        x = torch.randn(*shape, generator=gen, device=dev)
+        return x * torch.exp(0.5 * torch.randn(*shape[:-1], 1, generator=gen, device=dev))
+
+    qg = (3.0 * torch.randn(B, KV, G, Dh, generator=gen, device=dev)).bfloat16()
+    k, v = rows(B, KV, T, Dh), rows(B, KV, T, Dh)
+    k_new, v_new = rows(B, KV, Dh).bfloat16(), rows(B, KV, Dh).bfloat16()
+    kc, vc = generate._kv_pack(k, mode), generate._kv_pack(v, mode)
+    slots = torch.arange(T, device=dev)[None, :]
+    tail = (slots >= T - new) & (slots < T - new + new // 2)
+    if layout == "left":
+        plen = torch.randint(prompt - 150, prompt + 151, (B,), generator=gen, device=dev)
+        plen = plen.clamp(max=T - new)
+        mask = ((slots >= T - new - plen[:, None]) & (slots < T - new)) | tail
+    else:
+        Lp = min(1536, T // 2)
+        slen = torch.randint(suffix // 2, suffix + 1, (B,), generator=gen, device=dev)
+        mask = ((slots < min(prefix, Lp)) | ((slots >= Lp) & (slots < Lp + slen[:, None]))
+                | tail)
+    mask[-1] = False
+    if window is not None:  # the decode loop's window: cumulative slot positions
+        pos = mask.sum(1, keepdim=True)  # the current token's position
+        mask = mask & (pos - (torch.cumsum(mask.long(), 1) - 1) < window)
+    return qg, kc, vc, k_new, v_new, mask.contiguous()
+
+
+def kvq_work(args) -> tuple[int, int]:
+    """(operations, bytes) that B8 needs on one operand set, for its bound.
+    A masked key adds exactly 0, so only the keys the mask leaves count: the
+    bytes are the K and V payload and scale rows of those keys in each KV
+    head, the mask, q, the self term and the f32 output, each moved once;
+    the operations are q.k and p.v over those keys and the self term."""
+    qg, kc, vc, kn, vn, mask = args
+    B, KV, G, Dh = qg.shape
+    valid = int(mask.sum())  # (row, key) pairs left; each KV head reads its own rows
+    row = sum(c[0].shape[-1] * c[0].element_size() + c[1].shape[-1] * c[1].element_size()
+              for c in (kc, vc))
+    nbytes = (KV * valid * row + B * KV * G * Dh * 4
+              + sum(t.numel() * t.element_size() for t in (qg, kn, vn, mask)))
+    return 4 * KV * G * Dh * (valid + B), nbytes
+
+
+def operand_bytes(args) -> int:
+    """The bytes of one operand set as it lies in memory (for the cold-L2 cycle)."""
+    qg, kc, vc, kn, vn, mask = args
+    return sum(t.numel() * t.element_size() for t in (qg, *kc, *vc, kn, vn, mask))
+
+
+def _kvq_worker(root: str, check: bool) -> dict:
+    """B8 at the generate phase's shape, int8 and int4 (module docstring)."""
+    sys.path.insert(0, root)
+    import torch
+    from llmrankers_tpu_torch.ops import kvq_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    B, KV, G, Dh, T = 8, 2, 8, 128, 2304
+    scale = Dh**-0.5
+    cases = {}
+    for mode in ("int8", "int4"):
+        first = kvq_inputs(gen, B, KV, G, Dh, T, mode)
+        sets = [first] + [kvq_inputs(gen, B, KV, G, Dh, T, mode)
+                          for _ in range(n_cold_sets(operand_bytes(first)) - 1)]
+        fn = kvq_attention.kvq_decode_attention
+        calls = [lambda a=a: fn(*a[:6], scale, mode) for a in sets]
+        ops, nbytes = kvq_work(first)
+        t_ops, t_bytes = ops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+        rec = {"cold_ms": cold_ms(calls), "sets": len(sets), "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops > t_bytes else "bytes", "needed_bytes": nbytes,
+               "host_us": host_us(calls[0])}
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        for _ in range(3):
+            calls[0]()
+        start.record()
+        for _ in range(20):
+            calls[0]()
+        end.record()
+        torch.cuda.synchronize()
+        rec["warm_host_bound_ms"] = start.elapsed_time(end) / 20
+        if check:
+            got = calls[0]()
+            want = kvq_attention.kvq_decode_attention_plain(*first[:6], scale, mode)
+            rec["max_abs_err"] = (got - want).abs().max().item()
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            sd = [_dequantized(kvq_attention, a, mode) for a in sets]
+            rec["sdpa_cold_ms"] = cold_ms([lambda d=d: sdpa(*d, scale=scale, enable_gqa=True)
+                                           for d in sd])
+        cases[mode] = rec
+        del sets, calls
+        torch.cuda.empty_cache()
+    return cases
+
+
+def _dequantized(kvq_attention, args, mode):
+    """SDPA's operands for one B8 operand set: q [B, KV*G, 1, Dh], the
+    dequantized cache with the self term as its last key, bf16, and the
+    additive mask."""
+    import torch
+    import torch.nn.functional as F
+    qg, kc, vc, kn, vn, amask = args
+    B, KV, G, Dh = qg.shape
+
+    def deq(c):
+        if mode == "int4":
+            lo, hi = kvq_attention.unpack4(c[0], torch.float32)
+            return torch.cat([lo * c[1][..., :1], hi * c[1][..., 1:]], -1)
+        return c[0].float() * c[1]
+    kd = torch.cat([deq(kc), kn.float()[:, :, None]], 2).bfloat16()
+    vd = torch.cat([deq(vc), vn.float()[:, :, None]], 2).bfloat16()
+    mask = torch.where(F.pad(amask, (0, 1), value=True), 0.0, NEG).bfloat16()
+    return qg.reshape(B, KV * G, 1, Dh), kd, vd, mask[:, None, None, :]
 
 
 def _worker(root: str, check: bool) -> dict:
@@ -170,9 +363,12 @@ def main():
     parser.add_argument("baseline", nargs="?", help="root of the baseline checkout")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     parser.add_argument("--check", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--kvq", action="store_true",
+                        help="time the decode-attention kernel B8 instead, cold L2")
     opts = parser.parse_args()
     if opts.worker:
-        print(json.dumps(_worker(opts.worker, opts.check)))
+        work = _kvq_worker if opts.kvq else _worker
+        print(json.dumps(work(opts.worker, opts.check)))
         return
     import torch
     if not torch.cuda.is_available():
@@ -187,10 +383,14 @@ def main():
         cmd = [sys.executable, os.path.join(ROOT, "chip_flash_ab.py"), "--worker", roots[tree]]
         if tree == "change" and not runs["change"]:
             cmd.append("--check")
+        if opts.kvq:
+            cmd.append("--kvq")
         res = subprocess.run(cmd, capture_output=True, text=True, cwd=roots[tree])
         if res.returncode != 0:
             sys.exit(f"worker {tree} failed:\n{res.stderr[-4000:]}")
         runs[tree].append(json.loads(res.stdout.strip().splitlines()[-1]))
+    if opts.kvq:
+        return _kvq_report(runs, smi)
     out = {}
     for name, first in runs["change"][0].items():
         base = [r[name]["ms"] for r in runs["baseline"]]
@@ -205,6 +405,37 @@ def main():
               f"{new[1]:.4f} ms ({out[name]['speedup']:.2f}x, {out[name]['tflops']:.1f} "
               f"TFLOP/s), SDPA {first['sdpa_ms']:.4f} ms, bound {first['bound_ms']:.4f} ms, "
               f"max |diff| vs plain {first['max_abs_err']:.4g}")
+    print(smi)
+    print(json.dumps(out))
+
+
+def _kvq_report(runs, smi):
+    out = {}
+    for mode, first in runs["change"][0].items():
+        base = [r[mode]["cold_ms"] for r in runs["baseline"]]
+        new = [r[mode]["cold_ms"] for r in runs["change"]]
+        out[mode] = {
+            "baseline_cold_ms": base, "change_cold_ms": new,
+            "speedup": sum(base) / sum(new), "sdpa_cold_ms": first["sdpa_cold_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "needed_bytes": first["needed_bytes"], "sets": first["sets"],
+            "baseline_warm_host_bound_ms": [r[mode]["warm_host_bound_ms"] for r in runs["baseline"]],
+            "change_warm_host_bound_ms": [r[mode]["warm_host_bound_ms"] for r in runs["change"]],
+            "baseline_host_us": [r[mode]["host_us"] for r in runs["baseline"]],
+            "change_host_us": [r[mode]["host_us"] for r in runs["change"]],
+            "max_abs_err": first["max_abs_err"]}
+        o = out[mode]
+        print(f"B8 {mode} T 2304, device time with a cold L2 ({first['sets']} operand sets "
+              f"cycled, CUDA graph): baseline {base[0]:.4f}/{base[1]:.4f} ms, change "
+              f"{new[0]:.4f}/{new[1]:.4f} ms ({o['speedup']:.2f}x), SDPA on the dequantized "
+              f"cache {o['sdpa_cold_ms']:.4f} ms, bound {o['bound_ms']:.4f} ms ({o['bound_by']}, "
+              f"{o['needed_bytes'] / 1e6:.2f} MB of the valid keys' rows and the rest); warm, "
+              f"host-bound: baseline " + "/".join(f"{x:.4f}" for x in o["baseline_warm_host_bound_ms"])
+              + " ms, change " + "/".join(f"{x:.4f}" for x in o["change_warm_host_bound_ms"])
+              + " ms; wrapper host time per call: baseline "
+              + "/".join(f"{x:.1f}" for x in o["baseline_host_us"]) + " us, change "
+              + "/".join(f"{x:.1f}" for x in o["change_host_us"])
+              + f" us; max |diff| vs plain {o['max_abs_err']:.4g}")
     print(smi)
     print(json.dumps(out))
 

@@ -16,20 +16,27 @@ self term. The output is f32 ``[B, KV, G, Dh]``.
 
 On a CUDA tensor :func:`kvq_decode_attention` launches the hand-written kernel
 of ``csrc/kvq_decode.cu`` (bf16 q, ``sm_90a``) or raises; on a CPU tensor it
-runs :func:`kvq_decode_attention_plain`.
+runs :func:`kvq_decode_attention_plain`. The kernel is one launch of
+``B * KV`` thread-block clusters (:func:`cluster_size` blocks each) that load
+only the cache tiles :func:`key_tiles` lists.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple, Union
+import functools
+from typing import List, Optional, Tuple, Union
 
 import torch
 
 from . import _build
 
 NEG_INF = -1e9  # the decode path's masked score (engine/generate.py)
-MAX_GROUP = 8  # query heads per KV head the kernel holds in registers
-T_CHUNK = 64  # cache positions per split block (TCHUNK in csrc/kvq_decode.cu)
+# Mirrors of csrc/kvq_decode.cu's constants:
+MAX_GROUP = 8  # query heads per KV head (MAXG: the mma rows)
+TILE = 64  # cache positions per tile (TILE)
+STAGES = 6  # tiles in flight per block (STAGES)
+MAX_CLUSTER = 8  # blocks per (b, kv) cluster, the portable size (MAX_CLUSTER)
+SMEM_LIMIT = 224256  # dynamic shared memory a block may use (SMEM_LIMIT: 8 KB static)
 
 Cache = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -123,8 +130,10 @@ def _lib() -> ctypes.CDLL:
     fn = lib.kvq_decode_bf16
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 10 + [i32] * 6 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 9 + [i32] * 7 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
+        lib.kvq_smem_bytes.argtypes = [i32] * 3
+        lib.kvq_max_active_clusters.argtypes = [i32] * 4
     return lib
 
 
@@ -139,9 +148,75 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> tor
     return t
 
 
-def n_splits(T: int) -> int:
-    """Blocks along T per (b, kv): one per ``T_CHUNK`` cache positions."""
-    return -(-T // T_CHUNK)
+def n_tiles(T: int) -> int:
+    """``TILE``-position tiles of a cache of length T (the last may be partial)."""
+    return -(-T // TILE)
+
+
+def _smem_bytes(Dh: int, int4: bool, T: int) -> int:
+    """A block's dynamic shared memory (``kvq_smem_bytes`` in the source):
+    the ring of ``STAGES`` K and V payload tiles with their f32 scale rows,
+    then per tile two words of key-validity bits and a uint16 list entry."""
+    dhp, s = (Dh // 2, 2) if int4 else (Dh, 1)
+    return STAGES * 2 * TILE * (dhp + 4 * s) + 10 * n_tiles(T)
+
+
+def cluster_size(B: int, KV: int, T: int, sms: int) -> int:
+    """Blocks per (b, kv) cluster: enough that ``B * KV * cluster`` covers
+    the card's ``sms`` SMs, at most ``MAX_CLUSTER`` (the portable size) and
+    at most the cache's tiles; 1 where ``B * KV`` alone fills the card."""
+    return max(1, min(MAX_CLUSTER, sms // (B * KV), n_tiles(T)))
+
+
+def key_tiles(mask_row, T: int, cluster: int) -> List[List[int]]:
+    """The cache tiles each block of a (b, kv) cluster loads, as the kernel
+    plans them from the batch row ``mask_row`` ([T] of {0, 1}): the
+    ``TILE``-position tiles that hold a valid key, in order, cut into
+    ``cluster`` runs balanced by count (rank r takes entries [n*r // C,
+    n*(r+1) // C) of the n valid tiles). A tile with no valid key is in no
+    run."""
+    valid = [bool(x) for x in mask_row]
+    if len(valid) != T:
+        raise ValueError(f"key_tiles: mask row of {len(valid)} keys, want {T}")
+    tiles = [t for t in range(n_tiles(T)) if any(valid[t * TILE:(t + 1) * TILE])]
+    n = len(tiles)
+    return [tiles[n * r // cluster:n * (r + 1) // cluster] for r in range(cluster)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_shape(Dh: int, G: int, T: int, int4: bool) -> None:
+    """Raises on what the kernel does not take, before anything is built."""
+    if Dh not in (64, 128) or not 1 <= G <= MAX_GROUP:
+        raise ValueError(f"kvq_decode_attention: the kernel takes Dh 64 or 128 and a "
+                         f"group of 1 to {MAX_GROUP}, got Dh {Dh}, group {G}")
+    if T < 1 or _smem_bytes(Dh, int4, T) > SMEM_LIMIT:
+        raise ValueError(f"kvq_decode_attention: the kernel takes a cache of at least one "
+                         f"position whose tile plan fits in {SMEM_LIMIT} bytes of shared "
+                         f"memory, got T {T} ({_smem_bytes(Dh, int4, T)} bytes)")
+
+
+def _operands(qg, kc, vc, k_new, v_new, amask, mode: str):
+    """The kernel's operands (q, kp, ks, vp, vs, kn, vn, mask), each checked
+    against what the kernel takes (:func:`_check_shape`, :func:`_check`);
+    raises ValueError on the first that it does not."""
+    B, KV, G, Dh = qg.shape
+    int4 = mode == "int4"
+    T = kc[0].shape[2]
+    _check_shape(Dh, G, T, int4)
+    Dhp, S = (Dh // 2, 2) if int4 else (Dh, 1)
+    dev = qg.device
+    return (_check("q", qg.contiguous(), torch.bfloat16, (B, KV, G, Dh), dev),
+            _check("k payload", kc[0], torch.int8, (B, KV, T, Dhp), dev),
+            _check("k scales", kc[1], torch.float32, (B, KV, T, S), dev),
+            _check("v payload", vc[0], torch.int8, (B, KV, T, Dhp), dev),
+            _check("v scales", vc[1], torch.float32, (B, KV, T, S), dev),
+            _check("k_new", k_new.contiguous(), torch.bfloat16, (B, KV, Dh), dev),
+            _check("v_new", v_new.contiguous(), torch.bfloat16, (B, KV, Dh), dev),
+            _check("amask", amask.contiguous(), torch.bool, (B, T), dev))
 
 
 def kvq_decode_attention(
@@ -157,44 +232,33 @@ def kvq_decode_attention(
     """Decode attention over a quantized cache, f32 [B, KV, G, Dh].
 
     CPU tensors take :func:`kvq_decode_attention_plain`. CUDA tensors launch
-    the split pass and the combine pass of ``csrc/kvq_decode.cu`` on the
-    current stream and add one to ``kvq_decode_attention.launches``; what the
-    kernel does not take raises: q, k_new or v_new other than bf16, Dh other
-    than 64 or 128, a group above 8, tensors off q's device, a payload or
-    scales not contiguous."""
+    the kernel of ``csrc/kvq_decode.cu`` once on the current stream (B * KV
+    clusters of :func:`cluster_size` blocks; the only allocation is the
+    output) and add one to ``kvq_decode_attention.launches``; what the kernel
+    does not take raises: q, k_new or v_new other than bf16, Dh other than 64
+    or 128, a group outside 1-8, a cache whose tile plan overflows shared
+    memory, tensors off q's device, a payload or scales not contiguous or not
+    16-byte aligned, a launch the card refuses."""
     if mode not in ("int8", "int4"):
         raise ValueError(f"kvq_decode_attention: unknown mode {mode!r}")
     if qg.device.type == "cpu":
         return kvq_decode_attention_plain(qg, kc, vc, k_new, v_new, amask, scale, mode)
     if qg.device.type != "cuda":
         raise ValueError(f"kvq_decode_attention: no kernel for device {qg.device}")
-    B, KV, G, Dh = qg.shape
-    if Dh not in (64, 128) or G > MAX_GROUP:
-        raise ValueError(f"kvq_decode_attention: the kernel takes Dh 64 or 128 and a "
-                         f"group up to {MAX_GROUP}, got Dh {Dh}, group {G}")
-    int4 = mode == "int4"
-    Dhp, S = (Dh // 2, 2) if int4 else (Dh, 1)
-    T = kc[0].shape[2]
-    dev = qg.device
-    q = _check("q", qg.contiguous(), torch.bfloat16, (B, KV, G, Dh), dev)
-    kn = _check("k_new", k_new.contiguous(), torch.bfloat16, (B, KV, Dh), dev)
-    vn = _check("v_new", v_new.contiguous(), torch.bfloat16, (B, KV, Dh), dev)
-    kp = _check("k payload", kc[0], torch.int8, (B, KV, T, Dhp), dev)
-    ks = _check("k scales", kc[1], torch.float32, (B, KV, T, S), dev)
-    vp = _check("v payload", vc[0], torch.int8, (B, KV, T, Dhp), dev)
-    vs = _check("v scales", vc[1], torch.float32, (B, KV, T, S), dev)
-    mask = _check("amask", amask.contiguous(), torch.bool, (B, T), dev)
+    q, kp, ks, vp, vs, kn, vn, mask = _operands(qg, kc, vc, k_new, v_new, amask, mode)
+    B, KV, G, Dh = q.shape
+    T = kp.shape[2]
+    dev = q.device
     out = torch.empty((B, KV, G, Dh), dtype=torch.float32, device=dev)
-    # Per (b, kv, split): G rows of (acc [Dh], max, sum).
-    ws = torch.empty((B * KV * n_splits(T) * G * (Dh + 2),), dtype=torch.float32,
-                     device=dev)
+    cluster = cluster_size(B, KV, T, _sm_count(dev.index if dev.index is not None
+                                                 else torch.cuda.current_device()))
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.kvq_decode_bf16(
             q.data_ptr(), kp.data_ptr(), ks.data_ptr(), vp.data_ptr(), vs.data_ptr(),
-            kn.data_ptr(), vn.data_ptr(), mask.data_ptr(), ws.data_ptr(), out.data_ptr(),
-            B, KV, G, T, Dh, int(int4), float(scale), stream)
+            kn.data_ptr(), vn.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            B, KV, G, T, Dh, int(mode == "int4"), cluster, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"kvq_decode launch failed: CUDA error {rc}")
     kvq_decode_attention.launches += 1

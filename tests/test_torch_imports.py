@@ -104,7 +104,8 @@ def _imports(path):
             yield node.module or ""
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "chip_profile.py", "llmrankers_tpu_torch"])
+@pytest.mark.parametrize("path", ["chip_smoke.py", "chip_profile.py", "chip_flash_ab.py",
+                                  "chip_kvq_trace.py", "llmrankers_tpu_torch"])
 def test_no_import_of_the_jax_package(path):
     full = os.path.join(ROOT, path)
     files = [full] if path.endswith(".py") else list(_port_files())
