@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the flash kernel (or, with --kvq, the decode-attention kernel B8) of two checkouts in turns on one GPU.
+"""Time the flash kernel (or, with --kvq, B8; with --int8, B3) of two checkouts in turns on one GPU.
 
 Run from the root of a checkout, with another checkout (for example the
 parent commit, unpacked with ``git archive HEAD | tar -x -C build/parent``)
@@ -40,6 +40,18 @@ figure (20 back-to-back calls on one operand set between CUDA events) and
 the wrapper's host time per call; this tree's worker also times SDPA on the
 dequantized cache the same way and checks the kernel against its plain
 version. B8's bound (:func:`kvq_work`) counts only the keys the mask leaves.
+
+With ``--int8`` it times the W8A8 GEMM B3
+(``ops/int8_matmul.py::quantized_matmul``) instead, at ``chip_smoke.py``
+phase 5's sites (:data:`B3_SITES`): per site the whole call (quantize pass
+and GEMM) from CUDA events, the two kernels' device times from
+torch.profiler, and a sha256 of the output, which must be the same for both
+trees and every run (each tree gets the weight in the layout its wrapper
+takes: K-major where it has ``int8_matmul.check_kmajor``, else row-major);
+this tree's worker also checks the output against the plain version and
+times bf16 ``torch.matmul`` on the same shape as a yardstick. B3's bound is
+the larger of the int8 operations at 1,979 TOP/s and the bytes of x, the
+weight, the scales, the residual and the output at 3.35 TB/s.
 """
 from __future__ import annotations
 
@@ -55,6 +67,66 @@ NEG = -1e30
 
 
 COLD_BYTES = 100e6  # operand sets per timing cycle must exceed this (L2: 50 MB)
+
+
+# B3's sites, (name, M, K, N, residual, bf16 column scales): flan-t5-xl's
+# packed qkv, wo and the decoder's packed cross ckv (M = B*L of the encoder
+# output), a ragged M with a residual, a small ragged M (an odd number of
+# row tiles), and Qwen2.5-3B's int8 sites (its scale leaves are bf16).
+# chip_smoke.py phase 5 checks B3 at the same sites.
+B3_M = 32 * 640
+B3_SITES = (("qkv", B3_M, 2048, 6144, False, False), ("wo", B3_M, 5120, 2048, False, False),
+            ("wo+res", B3_M, 5120, 2048, True, False), ("ckv", B3_M, 2048, 4096, False, False),
+            ("ragged+res", 20403, 5120, 2048, True, False),
+            ("ragged+res, odd tiles", 1100, 2048, 2048, True, True),
+            ("Qwen wq/wo", B3_M, 2048, 2048, False, True),
+            ("Qwen wk/wv", B3_M, 2048, 256, False, True),
+            ("Qwen w_down", B3_M, 11008, 2048, False, True))
+H100_INT8_OPS = 1979e12
+
+
+def int8_operands(gen, M, K, N):
+    """bf16 activations [M, K] with per-row scales, outlier columns and one
+    all-zero row, and a per-channel int8 weight [K, N] (row-major) with f32
+    scales, from the checkout on ``sys.path``."""
+    import torch
+    from llmrankers_tpu_torch.models.quant import quantize_weight
+
+    dev = "cuda"
+    x = torch.randn(M, K, generator=gen, device=dev)
+    x = x * (0.5 + 2 * torch.rand(M, 1, generator=gen, device=dev))
+    x[:, ::97] *= 8.0
+    x[7] = 0.0
+    w8, sw = quantize_weight(torch.randn(K, N, generator=gen, device=dev) * K**-0.5)
+    return x.bfloat16(), w8.contiguous(), sw.contiguous()
+
+
+def device_ms_by_kernel(fn, calls=5, attempts=5) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, from torch.profiler
+    over ``calls`` calls after one warm-up: {kernel name: ms}. After one
+    session, a later one in the same process can come back short of events
+    when many kernels ran between them; a session where a kernel was not
+    seen once per call is run again, up to ``attempts`` sessions."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out, seen = {}, {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+                out[e.key] = out.get(e.key, 0.0) + us / 1e3 / calls
+                seen[e.key] = seen.get(e.key, 0) + e.count
+        if out and all(n == calls for n in seen.values()):
+            break
+    return out
 
 
 def cold_ms(calls, reps=2, iters=5) -> float:
@@ -215,6 +287,73 @@ def _kvq_worker(root: str, check: bool) -> dict:
     return cases
 
 
+def _int8_worker(root: str, check: bool) -> dict:
+    """B3 at the phase-5 sites (module docstring): per site the whole call's
+    ms from CUDA events, the GEMM's and the quantize pass's device ms from
+    torch.profiler, and a sha256 of the output. A tree whose wrapper checks
+    for K-major weights (``int8_matmul.check_kmajor``) gets them K-major, the
+    same values; an older tree gets them row-major."""
+    import hashlib
+
+    sys.path.insert(0, root)
+    import torch
+    from llmrankers_tpu_torch.ops import int8_matmul
+
+    int8_matmul._lib()  # build before timing
+    kmajor = hasattr(int8_matmul, "check_kmajor")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = {}
+    for site, M, K, N, with_res, bf16_scales in B3_SITES:
+        x, w8, sw = int8_operands(gen, M, K, N)
+        if bf16_scales:
+            sw = sw.bfloat16()
+        res = torch.randn(M, N, generator=gen, device="cuda").bfloat16() if with_res else None
+        wk = w8.t().contiguous().t() if kmajor else w8
+
+        def call():
+            return int8_matmul.quantized_matmul(x, wk, sw, residual=res)
+
+        got = call()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        for _ in range(3):
+            call()
+        start.record()
+        for _ in range(20):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        dev = device_ms_by_kernel(call)
+        nbytes = sum(t.numel() * t.element_size() for t in (x, w8, sw, res, got)
+                     if t is not None)
+        ops = 2 * M * K * N
+        rec = {"ms": start.elapsed_time(end) / 20, "ops": ops,
+               "gemm_ms": sum(v for k, v in dev.items() if "int8_gemm" in k),
+               "quantize_ms": sum(v for k, v in dev.items() if "quantize_blocks" in k),
+               "kernels": sorted(dev),
+               "bound_ms": max(ops / H100_INT8_OPS, nbytes / H100_BYTES_PER_S) * 1e3,
+               "bound_by": "operations" if ops / H100_INT8_OPS > nbytes / H100_BYTES_PER_S
+               else "bytes",
+               "sha256": hashlib.sha256(got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()}
+        if check:
+            want = int8_matmul.quantized_matmul_plain(x, w8, sw, res)
+            rec["equal_to_plain"] = bool(torch.equal(got, want))
+            wb = (w8.bfloat16() * sw.bfloat16()).contiguous()
+            for _ in range(2):
+                x @ wb
+            start.record()
+            for _ in range(10):
+                x @ wb
+            end.record()
+            torch.cuda.synchronize()
+            rec["bf16_matmul_ms"] = start.elapsed_time(end) / 10
+            del want, wb
+        cases[site] = rec
+        del x, w8, wk, sw, res, got
+        torch.cuda.empty_cache()
+    return cases
+
+
 def _dequantized(kvq_attention, args, mode):
     """SDPA's operands for one B8 operand set: q [B, KV*G, 1, Dh], the
     dequantized cache with the self term as its last key, bf16, and the
@@ -363,11 +502,14 @@ def main():
     parser.add_argument("baseline", nargs="?", help="root of the baseline checkout")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     parser.add_argument("--check", action="store_true", help=argparse.SUPPRESS)
-    parser.add_argument("--kvq", action="store_true",
-                        help="time the decode-attention kernel B8 instead, cold L2")
+    kind = parser.add_mutually_exclusive_group()
+    kind.add_argument("--kvq", action="store_true",
+                      help="time the decode-attention kernel B8 instead, cold L2")
+    kind.add_argument("--int8", action="store_true",
+                      help="time the W8A8 GEMM B3 instead, at chip_smoke.py phase 5's sites")
     opts = parser.parse_args()
     if opts.worker:
-        work = _kvq_worker if opts.kvq else _worker
+        work = _kvq_worker if opts.kvq else _int8_worker if opts.int8 else _worker
         print(json.dumps(work(opts.worker, opts.check)))
         return
     import torch
@@ -385,12 +527,16 @@ def main():
             cmd.append("--check")
         if opts.kvq:
             cmd.append("--kvq")
+        if opts.int8:
+            cmd.append("--int8")
         res = subprocess.run(cmd, capture_output=True, text=True, cwd=roots[tree])
         if res.returncode != 0:
             sys.exit(f"worker {tree} failed:\n{res.stderr[-4000:]}")
         runs[tree].append(json.loads(res.stdout.strip().splitlines()[-1]))
     if opts.kvq:
         return _kvq_report(runs, smi)
+    if opts.int8:
+        return _int8_report(runs, smi)
     out = {}
     for name, first in runs["change"][0].items():
         base = [r[name]["ms"] for r in runs["baseline"]]
@@ -407,6 +553,49 @@ def main():
               f"max |diff| vs plain {first['max_abs_err']:.4g}")
     print(smi)
     print(json.dumps(out))
+
+
+def _int8_report(runs, smi):
+    """Per site both trees' call and GEMM times; exits non-zero when an
+    output's hash differs between the trees or between runs, or this tree's
+    output is not its plain version's."""
+    out, bad = {}, []
+    for site, first in runs["change"][0].items():
+        recs = {tree: [r[site] for r in runs[tree]] for tree in runs}
+        hashes = {r["sha256"] for rr in recs.values() for r in rr}
+        if len(hashes) != 1 or not first["equal_to_plain"]:
+            bad.append(site)
+        base = [r["ms"] for r in recs["baseline"]]
+        new = [r["ms"] for r in recs["change"]]
+        gemm = [r["gemm_ms"] for r in recs["change"]]
+        o = out[site] = {
+            "baseline_ms": base, "change_ms": new, "speedup": sum(base) / sum(new),
+            "baseline_gemm_ms": [r["gemm_ms"] for r in recs["baseline"]],
+            "change_gemm_ms": gemm,
+            "baseline_quantize_ms": [r["quantize_ms"] for r in recs["baseline"]],
+            "change_quantize_ms": [r["quantize_ms"] for r in recs["change"]],
+            "gemm_tops": first["ops"] / (sum(gemm) / 2) / 1e9,
+            "call_tops": first["ops"] / (sum(new) / 2) / 1e9,
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "gemm_over_bound": sum(gemm) / 2 / first["bound_ms"],
+            "bf16_matmul_ms": first["bf16_matmul_ms"],
+            "baseline_kernels": recs["baseline"][0]["kernels"],
+            "change_kernels": first["kernels"],
+            "sha256_equal": len(hashes) == 1, "equal_to_plain": first["equal_to_plain"]}
+        print(f"B3 {site}: call baseline {base[0]:.4f}/{base[1]:.4f} ms, change {new[0]:.4f}/"
+              f"{new[1]:.4f} ms ({o['speedup']:.2f}x, {o['call_tops']:.1f} TOP/s); device GEMM "
+              "baseline " + "/".join(f"{x:.4f}" for x in o["baseline_gemm_ms"])
+              + " ms, change " + "/".join(f"{x:.4f}" for x in gemm)
+              + f" ms ({o['gemm_tops']:.1f} TOP/s, {o['gemm_over_bound']:.2f}x the bound "
+              f"{o['bound_ms']:.4f} ms, {o['bound_by']}); quantize pass "
+              + "/".join(f"{x:.4f}" for x in o["change_quantize_ms"])
+              + f" ms; bf16 torch.matmul yardstick {o['bf16_matmul_ms']:.4f} ms; outputs' "
+              f"sha256 {'equal' if o['sha256_equal'] else 'DIFFER'} across trees and runs, "
+              f"{'equal' if o['equal_to_plain'] else 'NOT equal'} to the plain version")
+    print(smi)
+    print(json.dumps(out))
+    if bad:
+        sys.exit(f"B3 outputs differ between the trees or from the plain version at {bad}")
 
 
 def _kvq_report(runs, smi):

@@ -64,13 +64,14 @@ import time
 
 import torch
 
+import chip_flash_ab as ab
 import chip_smoke as smoke  # exits when there is no CUDA GPU
 from llmrankers_tpu_torch.cli import run as cli_run
 from llmrankers_tpu_torch.engine.engine import ScoringEngine
 from llmrankers_tpu_torch.engine.tokenizer import ByteTokenizer
 from llmrankers_tpu_torch.models import decoder
 from llmrankers_tpu_torch.models.config import DecoderConfig, T5Config
-from llmrankers_tpu_torch.models.quant import is_quantized
+from llmrankers_tpu_torch.models.quant import is_quantized, to_kmajor
 from llmrankers_tpu_torch.ops import int4_matmul, int8_matmul
 
 H100_BF16_PEAK_TFLOPS = 989.0  # NVIDIA H100 SXM data sheet, dense, 700 W
@@ -147,7 +148,8 @@ def site_times(ms=(1024, 20480), rounds=6):
     out = {}
     for name, K, N in QWEN_SITES:
         for M in ms:
-            x, w8, sw = smoke._int8_operands(gen, M, K, N)
+            x, w8, sw = ab.int8_operands(gen, M, K, N)
+            w8k = to_kmajor(w8)  # B3 takes its weight K-major, as the model holds it
             wb = (w8.bfloat16() * sw.bfloat16()).contiguous()
             s8 = sw.bfloat16()
             p4, s4 = int4_matmul.pack_int4(torch.randn(K, N, generator=gen, device="cuda")
@@ -155,7 +157,7 @@ def site_times(ms=(1024, 20480), rounds=6):
             routes = {
                 "bf16": lambda: x @ wb,
                 "w8a16": lambda: x @ (w8.to(s8.dtype) * s8),
-                "b3": lambda: int8_matmul.quantized_matmul(x, w8, s8),
+                "b3": lambda: int8_matmul.quantized_matmul(x, w8k, s8),
                 "b7": lambda: int4_matmul.quantized_matmul_int4(x, p4, s4),
             }
             out[f"{name} {M}"] = times = {route: [] for route in routes}
@@ -167,7 +169,7 @@ def site_times(ms=(1024, 20480), rounds=6):
             print(f"  site {name:12s} [{M}, {K}]x[{K}, {N}]: " + ", ".join(
                 f"{route} {statistics.median(t):.4f} ms ({min(t):.4f}-{max(t):.4f})"
                 for route, t in times.items()))
-            del x, w8, sw, wb, p4, s4
+            del x, w8, w8k, sw, wb, p4, s4
     return out
 
 
@@ -302,6 +304,12 @@ def main():
     if total_us == 0:
         raise RuntimeError("the profiler recorded no device time")
     busy = total_us / 1e6 / prof_wall
+    if launches["quantized_matmul"]:  # B3's launches ran its wgmma kernel, none the old body
+        b3 = sum(n for name, _, n in rows if "int8_gemm_wgmma" in name)
+        old = sum(n for name, _, n in rows if "int8_gemm_kernel<false>" in name)
+        if b3 != launches["quantized_matmul"] or old != launches["int8_matmul"]:
+            raise RuntimeError(f"{b3} int8_gemm_wgmma_kernel and {old} int8_gemm_kernel<false> "
+                               f"device launches for {launches['quantized_matmul']} B3 calls")
     by_family = {}
     for name, us, _ in rows:
         by_family[_family(name)] = by_family.get(_family(name), 0.0) + us

@@ -25,12 +25,19 @@ nvcc per source, side by side) and then, one line per phase:
 4. B2: the packed flash at flan-t5-xl's encoder shape (B 32, L 640, H 32,
    Dh 64, qkv [32, 640, 6144]) against its plain version, with k read at
    q's offset, v at k's and K/V one key tile late as negative controls;
-5. B3: the W8A8 GEMM at the xl sites qkv and wo (wo with and without a
-   residual, f32 column scales) and at Qwen2.5-3B's int8 sites wq/wo, wk/wv
-   and w_down (bf16 column scales, read in place), every element within one
-   bf16 ulp of the plain version; activation scales at another K-block (the
-   whole row, or half the K-block where it is the whole row) and column
-   scales rolled by one must fail;
+5. B3: the W8A8 GEMM (its wgmma kernel's registers and shared memory from
+   the build log) on K-major weights, as the models hold them, at the xl
+   sites qkv, wo (with and without a residual) and ckv (f32 column scales),
+   ragged Ms of 20403 and 1100 with a residual, a [300, 256] x [256, 384]
+   product, and Qwen2.5-3B's int8 sites wq/wo,
+   wk/wv and w_down (bf16 column scales, read in place): every output equal
+   to the plain version's bit for bit and within one bf16 ulp; activation
+   scales at another K-block (the whole row, or half the K-block where it is
+   the whole row) and column scales rolled by one must fail, and a
+   row-major weight must raise; per site the whole call's time (CUDA
+   events), the GEMM's and the quantize pass's device times (torch.profiler,
+   in a worker process) and bf16 ``torch.matmul`` on the same shape as a
+   yardstick;
 6. B4: the gated GEMM at xl wi_g with gelu_new, the same gate plus a stated
    tanh allowance; swapped halves and relu must fail;
 7. B5: the GQA flash kernel on [B, H, L, Dh] views of the projections at
@@ -148,6 +155,7 @@ from llmrankers_tpu_torch.engine.engine import ScoringEngine  # noqa: E402
 from llmrankers_tpu_torch.engine.tokenizer import ByteTokenizer  # noqa: E402
 from llmrankers_tpu_torch.models import decoder, t5  # noqa: E402
 from llmrankers_tpu_torch.models.config import DecoderConfig, T5Config  # noqa: E402
+from llmrankers_tpu_torch.models import quant  # noqa: E402
 from llmrankers_tpu_torch.models.quant import quantize_weight  # noqa: E402
 from llmrankers_tpu_torch.ops import (_build, flash, int4_matmul, int8_matmul,  # noqa: E402
                                       kvq_attention)
@@ -502,18 +510,6 @@ def phase_packed(gen):
     return _record(err, ms, plain_ms, bound, lib, tflops=_tflops(flops, ms))
 
 
-def _int8_operands(gen, M, K, N):
-    """bf16 activations [M, K] with per-row scales, outlier columns and one
-    all-zero row, and a per-channel int8 weight [K, N] with f32 scales."""
-    dev = "cuda"
-    x = torch.randn(M, K, generator=gen, device=dev)
-    x = x * (0.5 + 2 * torch.rand(M, 1, generator=gen, device=dev))
-    x[:, ::97] *= 8.0
-    x[7] = 0.0
-    w8, sw = quantize_weight(torch.randn(K, N, generator=gen, device=dev) * K**-0.5)
-    return x.bfloat16(), w8.contiguous(), sw.contiguous()
-
-
 def _ulp_gate(got, want, allowance=0.0):
     """(max |diff|, elements over one bf16 ulp of |want| + 1e-6 + allowance)."""
     d = (got.float() - want.float()).abs()
@@ -521,24 +517,52 @@ def _ulp_gate(got, want, allowance=0.0):
     return d.max().item(), int((d > lim).sum().item())
 
 
-# B3's sites, (name, K, N, residual, bf16 column scales): flan-t5-xl's
-# packed qkv and wo, and Qwen2.5-3B's int8 sites (its scale leaves are bf16).
-B3_SITES = (("qkv", 2048, 6144, False, False), ("wo", 5120, 2048, False, False),
-            ("wo+res", 5120, 2048, True, False), ("Qwen wq/wo", 2048, 2048, False, True),
-            ("Qwen wk/wv", 2048, 256, False, True), ("Qwen w_down", 11008, 2048, False, True))
+B3_KERNEL = "int8_gemm_wgmma_kernel"  # B3's GEMM; the quantize pass is quantize_blocks_kernel
+
+
+def _b3_build_text() -> str:
+    """B3's kernel in ptxas's log (registers, spill stores) and its dynamic
+    shared memory."""
+    funcs = [f for f in _ptxas_functions(_build.build_log("int8_fusedq")) if B3_KERNEL in f[0]]
+    smem = int8_matmul._lib().quantized_matmul_smem_bytes()
+    regs = (f"{funcs[0][1]} registers, {funcs[0][2]} B spill stores" if funcs
+            else "registers not in this process's build log (already built)")
+    return f"{B3_KERNEL}: {regs}, {smem} B dynamic shared memory"
+
+
+def _b3_device_times():
+    """Per B3 site, the GEMM's and the quantize pass's device ms and the
+    kernels one call launches, from torch.profiler in a process of its own
+    (``chip_flash_ab.py --int8``'s worker on this tree): a profiler session
+    leaves later sessions in its process short of events, and phase 22
+    counts one call's kernels with the profiler."""
+    res = subprocess.run([sys.executable, os.path.join(ROOT, "chip_flash_ab.py"), "--int8",
+                          "--worker", ROOT], capture_output=True, text=True, cwd=ROOT)
+    if res.returncode != 0:
+        raise AssertionError(f"B3 device times: the worker failed:\n{res.stderr[-4000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
 
 
 def phase_quantized_matmul(gen):
-    """B3 at the flan-t5-xl sites and Qwen2.5-3B's (M = 32 rows x 640 tokens)."""
-    M = 32 * 640
+    """B3 at the flan-t5-xl sites and Qwen2.5-3B's (M = 32 rows x 640 tokens),
+    and a ragged M, on K-major weights; a row-major weight must raise."""
     cases, timed = [], {}
-    for site, K, N, with_res, bf16_scales in B3_SITES:
-        x, w8, sw = _int8_operands(gen, M, K, N)
+    device = _b3_device_times()
+    for site, M, K, N, with_res, bf16_scales in ab.B3_SITES:
+        x, w8, sw = ab.int8_operands(gen, M, K, N)
+        w8k = quant.to_kmajor(w8)  # the layout of the model's B3 leaves
         if bf16_scales:
             sw = sw.bfloat16()
         res = (torch.randn(M, N, generator=gen, device="cuda").bfloat16()
                if with_res else None)
-        got = int8_matmul.quantized_matmul(x, w8, sw, residual=res)
+        if not cases:
+            try:
+                int8_matmul.quantized_matmul(x, w8, sw, residual=res)
+            except ValueError as exc:
+                refused = str(exc)
+            else:
+                raise AssertionError("B3 took a row-major weight")
+        got = int8_matmul.quantized_matmul(x, w8k, sw, residual=res)
         torch.cuda.synchronize()
         want = int8_matmul.quantized_matmul_plain(x, w8, sw, res)
         if not torch.isfinite(got).all() or got.shape != (M, N):
@@ -546,6 +570,9 @@ def phase_quantized_matmul(gen):
         zero = torch.zeros(N, device="cuda") if res is None else res[7].float()
         if not torch.equal(got[7].float(), zero):
             raise AssertionError(f"B3 {site}: an all-zero row is not 0*sw (+ residual)")
+        if not torch.equal(got, want):
+            raise AssertionError(f"B3 {site}: {int((got != want).sum())} elements differ "
+                                 f"from the plain version")
         err, bad = _ulp_gate(got, want)
         if bad:
             raise AssertionError(f"B3 {site}: {bad} elements over one bf16 ulp, "
@@ -563,31 +590,56 @@ def phase_quantized_matmul(gen):
         if blind:
             raise AssertionError(f"B3 {site}: the gate passes {blind}")
         ms, plain_ms, runs = _in_turns(
-            lambda: int8_matmul.quantized_matmul(x, w8, sw, residual=res),
+            lambda: int8_matmul.quantized_matmul(x, w8k, sw, residual=res),
             lambda: int8_matmul.quantized_matmul_plain(x, w8, sw, res), 3)
-        tops = 2 * M * K * N / (ms * 1e-3) / 1e12
-        bound = _bound(2 * M * K * N, _nbytes(x, w8, sw, res, got), H100_INT8_OPS)
-        cases.append((site, K, N, kb, other_kb, sw.dtype, err, ctl, ms, plain_ms, tops, runs,
-                      bound))
-        timed[site] = (err, ms, plain_ms, bound)
-        del x, w8, sw, res, got
+        dev = device[site]
+        gemm, qpass = dev["gemm_ms"], dev["quantize_ms"]
+        kernels = dev["kernels"]
+        if (len(kernels) != 2 or not any(B3_KERNEL in k for k in kernels)
+                or not any("quantize_blocks" in k for k in kernels)):
+            raise AssertionError(f"B3 {site}: one call ran {kernels}, not the quantize "
+                                 f"pass and {B3_KERNEL}")
+        ops = 2 * M * K * N
+        bound = _bound(ops, _nbytes(x, w8, sw, res, got), H100_INT8_OPS)
+        wb = (w8.bfloat16() * sw.bfloat16()).contiguous()
+        yard = _cuda_ms(lambda: x @ wb, iters=10, warmup=2)
+        cases.append((site, M, K, N, kb, other_kb, sw.dtype, ctl, ms, plain_ms, runs, bound,
+                      gemm, qpass, yard))
+        timed[site] = (err, ms, plain_ms, bound, gemm, qpass)
+        del x, w8, w8k, sw, res, got, wb
+        torch.cuda.empty_cache()
+    # A small product of 3 x 3 tiles, the last row tile mostly past M.
+    x, w8, sw = ab.int8_operands(gen, 300, 256, 384)
+    edge = int8_matmul.quantized_matmul(x, quant.to_kmajor(w8), sw)
+    if not torch.equal(edge, int8_matmul.quantized_matmul_plain(x, w8, sw)):
+        raise AssertionError("B3 [300, 256]x[256, 384]: differs from the plain version")
     text = "; ".join(
-        f"{site} [{M}, {K}]x[{K}, {N}] K-block {kb}, {str(dt)[6:]} sw: max |diff| "
-        f"{err:.4g}, over the gate with K-block {okb} {ctl['another K-block']} and with "
-        f"sw rolled {ctl['sw rolled']} elements; kernel {ms:.4f} ms ({tops:.1f} TOP/s), "
-        f"plain {plain_ms:.4f} ms ({_turns_text(runs)}), bound {b[0]:.4f} ms ({b[1]})"
-        for site, K, N, kb, okb, dt, err, ctl, ms, plain_ms, tops, runs, b in cases)
-    print(f"[5/{N_PHASES}] B3 W8A8 GEMM vs plain, bf16 x, gate |diff| <= 2^-7 |want| "
-          f"+ 1e-6 on every element; all-zero rows exactly 0*sw (+ residual); {text}; "
-          f"no one PyTorch call computes it (per-row, per-K-block activation quantization)")
+        f"{site} [{M}, {K}]x[{K}, {N}] K-block {kb}, {str(dt)[6:]} sw: equal to the plain "
+        f"version; over the gate with K-block {okb} {ctl['another K-block']} and with sw "
+        f"rolled {ctl['sw rolled']} elements; call {ms:.4f} ms "
+        f"({2 * M * K * N / ms / 1e9:.1f} TOP/s), plain {plain_ms:.4f} ms "
+        f"({_turns_text(runs)}); device: GEMM {gemm:.4f} ms ({2 * M * K * N / gemm / 1e9:.1f} "
+        f"TOP/s, {gemm / b[0]:.2f}x the bound), quantize pass {qp:.4f} ms; bound {b[0]:.4f} "
+        f"ms ({b[1]}); bf16 torch.matmul yardstick {yd:.4f} ms"
+        for site, M, K, N, kb, okb, dt, ctl, ms, plain_ms, runs, b, gemm, qp, yd in cases)
+    print(f"[5/{N_PHASES}] B3 W8A8 GEMM ({_b3_build_text()}) vs plain, bf16 x, K-major "
+          f"int8 weights (a row-major one raises: {refused!r}); every output equal to the "
+          f"plain version's bit for bit and within the gate |diff| <= 2^-7 |want| + 1e-6; "
+          f"all-zero rows exactly 0*sw (+ residual); [300, 256]x[256, 384] (3 x 3 tiles) "
+          f"equal too; {text}; CUDA events over whole calls, device times per kernel "
+          f"from torch.profiler in a worker process (chip_flash_ab.py --int8, other "
+          f"operands of the same shapes); no one PyTorch call computes it "
+          f"(per-row, per-K-block activation quantization), the bf16 product is a timing "
+          f"yardstick only")
     err = max(t[0] for t in timed.values())
-    return _record(err, *timed["qkv"][1:], None)
+    _, ms, plain_ms, bound, gemm, qpass = timed["qkv"]
+    return _record(err, ms, plain_ms, bound, None, gemm_ms=gemm, quantize_ms=qpass)
 
 
 def phase_gated_matmul(gen):
     """B4 at flan-t5-xl's wi_g: [20480, 2048] x [2048, 2 x 5120], gelu_new."""
     M, K, N = 32 * 640, 2048, 5120
-    x, wp, sp = _int8_operands(gen, M, K, 2 * N)
+    x, wp, sp = ab.int8_operands(gen, M, K, 2 * N)
     got = int8_matmul.gated_matmul(x, wp, sp, act="gelu_new")
     torch.cuda.synchronize()
     want = int8_matmul.gated_matmul_plain(x, wp, sp, "gelu_new")
@@ -628,7 +680,7 @@ def phase_gated_matmul(gen):
 def phase_gated_pair(gen):
     """B6 at Qwen2.5-3B's FFN: [20480, 2048] x two [2048, 11008], silu."""
     M, K, N = 32 * 640, 2048, 11008
-    x, w0, s0 = _int8_operands(gen, M, K, N)
+    x, w0, s0 = ab.int8_operands(gen, M, K, N)
     w1, s1 = quantize_weight(torch.randn(K, N, generator=gen, device="cuda") * K**-0.5)
     # The decoder's scales are bf16 leaves, which the kernel reads in place.
     s0, s1 = s0.bfloat16(), s1.bfloat16()
@@ -665,7 +717,7 @@ def phase_gated_pair(gen):
 
 
 def _w4_operands(gen, M, K, N, residual):
-    x, _, _ = _int8_operands(gen, M, K, 128)
+    x, _, _ = ab.int8_operands(gen, M, K, 128)
     p4, sw = int4_matmul.pack_int4(torch.randn(K, N, generator=gen, device="cuda") * K**-0.5)
     res = torch.randn(M, N, generator=gen, device="cuda").bfloat16() if residual else None
     return x, p4.contiguous(), sw.contiguous(), res
@@ -738,7 +790,7 @@ def phase_int4(gen):
 def phase_int8_matmul(gen):
     """B9 at B3's xl qkv shape, on activations quantized per row."""
     M, K, N = 32 * 640, 2048, 6144
-    x, w8, sw = _int8_operands(gen, M, K, N)
+    x, w8, sw = ab.int8_operands(gen, M, K, N)
     x8, sx = int8_matmul.quantize_rows(x)
     got = int8_matmul.int8_matmul(x8, sx, w8, sw)
     torch.cuda.synchronize()

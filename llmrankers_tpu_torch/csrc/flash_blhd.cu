@@ -77,6 +77,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma_encode.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
@@ -471,32 +472,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 }  // namespace
 
 namespace {
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library links against the runtime alone.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t rc =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-    }
-  }
-  return fn;
-}
 
 CUtensorMapSwizzle swizzle_for(int w) {
   return w == 64 ? CU_TENSOR_MAP_SWIZZLE_128B

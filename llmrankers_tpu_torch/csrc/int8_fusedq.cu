@@ -22,40 +22,83 @@
 // Design. Two launches per call (int8_matmul: the GEMM only). (1) One warp
 // per (row, K-block) computes amax, writes the int8 row block to a scratch
 // [M, K] and its scale to [M, K/kb]; the wrapper allocates both. A K-block of
-// 576 to 2048 bf16 per row does not fit a GEMM tile, so amax must be known
+// 256 to 2048 bf16 per row does not fit a GEMM tile, so amax must be known
 // before the block is quantized; the separate pass reads x once and writes a
-// quarter of its bytes. (2) The GEMM: one block of eight warps per 128 x 128
-// output tile (gated: 128 rows x 64 columns of each weight, both sharing the
-// A tile), K in stages of 64 bytes. A (int8 x, K-contiguous) is staged as it
-// is; B (int8 w, [K, N] N-contiguous) is transposed to K-contiguous while it
-// is staged, four k-rows of eight columns at a time with byte permutes, since
-// mma.sync wants B K-major and ldmatrix .trans handles only 16-bit elements.
-// Four neighbouring lanes read one 32-byte sector of a k-row, and they store
-// their transposed columns in rotated order, so the stores of a warp hit 32
-// distinct banks. Two shared buffers: the next stage's global loads go to
-// registers before the current stage is multiplied and to the other buffer
-// after, one barrier per stage. Shared-memory rows are padded to 80 bytes,
-// so the ldmatrix.x4 fragment reads are free of bank conflicts. The
-// products run on the tensor cores as mma.sync.m16n8k32.s32.s8.s8.s32; each
-// warp owns 64 rows x 32 columns with int32 accumulators that are folded
-// into f32 (times the row scale) and reset at the end of every K-block,
-// never carried across it. The gated variants read their two weights through
-// two pointers with one row stride: w1 = w0 + N and stride 2N for the packed
-// leaf, the second weight and stride N for the pair.
+// quarter of its bytes. (2) The GEMM, one of two bodies.
+//
+// B3 (quantized_matmul): int8_gemm_wgmma_kernel, for Hopper. The weight
+// comes K-major, an [N, K] buffer (models/quant.py lays B3's leaves out so),
+// because wgmma reads s8 operands from shared memory K-major only. One block
+// per 128 x 128 output tile, 288 threads:
+// - a producer warp, one of whose threads issues the TMA loads of the A tile
+//   (x8 rows, K-contiguous) and the B tile (the weight's N rows,
+//   K-contiguous), 128 x 128 bytes each, into a ring of six 32 KB stages
+//   under the 128-byte swizzle, each stage completing on its "full"
+//   mbarrier;
+// - two consumer warpgroups, each owning 64 rows x 128 columns, that run
+//   wgmma m64n128k32 s8 from shared-memory descriptors (four per stage) and
+//   release a stage on its "empty" mbarrier once the products that read it
+//   are done (wgmma.wait_group 1: one stage's products stay in flight while
+//   the next is issued). At the end of each K-block a warpgroup waits for
+//   its products and folds accf += float(acc) * sx[row, b] with the row
+//   scales it loaded at the block's start; the next block's first wgmma
+//   overwrites acc (scale-d 0). The two warpgroups move through the ring
+//   independently, so one's products run while the other folds;
+// - an epilogue that applies the column scale and the residual in
+//   registers, writes the bf16 tile to shared memory under the 128-byte
+//   swizzle and stores it by TMA, which drops the rows past M (TMA also
+//   zero-fills them on the way in).
+// A producer warp rather than a warpgroup leaves room for the 64 int32 sums
+// and their 64 f32 folds (168 registers, no spill). Every wait loop sits in
+// one asm block and the role branch is on a warp index broadcast from lane
+// 0: ptxas serialises the wgmmas (C7518) when it sees a divergent path
+// around them, which cost a first version much of its rate. Blocks run N tiles
+// fastest, so the weight stays in the 50 MB L2 while each x8 panel is read
+// from memory about once. In trials a version without the TMA loads ran
+// faster than one without the wgmmas, yet sharing the tiles across a
+// cluster by TMA multicast (2 x 1, 1 x 2 and 2 x 2 blocks) gained at one
+// shape and lost at the others, so each block loads its own.
+//
+// B4, B6 and B9: int8_gemm_kernel, on mma.sync. One block of eight warps
+// per 128 x 128 output tile (gated: 128 rows x 64 columns of each weight,
+// both sharing the A tile), K in stages of 64 bytes. A (int8 x,
+// K-contiguous) is staged as it is; B (int8 w, [K, N] N-contiguous) is
+// transposed to K-contiguous while it is staged, four k-rows of eight
+// columns at a time with byte permutes, since mma.sync wants B K-major and
+// ldmatrix .trans handles only 16-bit elements. Four neighbouring lanes read
+// one 32-byte sector of a k-row, and they store their transposed columns in
+// rotated order, so the stores of a warp hit 32 distinct banks. Two shared
+// buffers: the next stage's global loads go to registers before the current
+// stage is multiplied and to the other buffer after, one barrier per stage.
+// Shared-memory rows are padded to 80 bytes, so the ldmatrix.x4 fragment
+// reads are free of bank conflicts. The products run on the tensor cores as
+// mma.sync.m16n8k32.s32.s8.s8.s32; each warp owns 64 rows x 32 columns with
+// int32 accumulators that are folded into f32 (times the row scale) and
+// reset at the end of every K-block, never carried across it. The gated
+// variants read their two weights through two pointers with one row stride:
+// w1 = w0 + N and stride 2N for the packed leaf, the second weight and
+// stride N for the pair.
+//
+// Both bodies fold in block order with the same f32 steps and apply the
+// column scale (f32, or bf16 read in place) and the residual in the plain
+// version's order; int32 sums are exact in any order, so each is bit-exact
+// against the plain version.
 //
 // What bounds it. At flan-t5-xl's encoder shapes (M = 20480, K 2048 or
 // 5120, N 2048 to 2 x 5120) and Qwen2.5-3B's (M = 20480, K 2048 or 11008,
 // N 256 to 2 x 11008) the work is bound by the int8 tensor-core rate.
 // mma.sync from registers, one stage of prefetch and one block of eight
-// warps per SM (240 registers a thread) leave most of that rate unused.
-// Later work: wgmma from shared memory with TMA and a deeper pipeline, the
-// weights stored K-major so both operands load without the transpose, and
-// the quantize pass fused into the producer of x.
+// warps per SM (240 registers a thread) leave most of that rate unused in
+// the B4/B6/B9 body; B3's body feeds wgmma by TMA. Later work: the gated
+// variants on B3's mainloop, and the quantize pass fused into it.
+#include <cuda.h>  // CUtensorMap; no -lcuda (driver entry point)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "int8_mma.cuh"
+#include "int8_wgmma.cuh"
+#include "tma_encode.cuh"
 
 namespace {
 
@@ -338,22 +381,256 @@ GemmParams params(const void* x8, const void* sx, const void* w0, const void* s0
   return p;
 }
 
+// ---------------------------------------------------------------------------
+// B3 on wgmma (see the note at the top)
+// ---------------------------------------------------------------------------
+constexpr int kWgRows = 128;                      // output rows per block
+constexpr int kWgCols = 128;                      // output columns per block
+constexpr int kWgK = 128;                         // int8 K per stage: one swizzle row
+constexpr int kWgStages = 6;                      // ring depth
+constexpr int kWgTile = kWgRows * kWgK;           // bytes of one operand tile
+constexpr int kWgStage = 2 * kWgTile;             // A and B
+constexpr int kWgThreads = 2 * 128 + 32;          // two consumer warpgroups, one producer warp
+constexpr int kWgConsumers = 2 * 128;             // arrivals that empty a stage
+constexpr int kWgOut = kWgRows * kWgCols * 2;     // the bf16 output tile, staged for TMA
+constexpr int kWgSmem = kWgStages * kWgStage + kWgOut + 16 * kWgStages + 1024;  // + bars, align
+constexpr int kMaxSmem = 232448;                  // bytes a block may use on sm_90
+
+struct WgParams {
+  const float* sx;            // [M, K / kb]
+  const void* sw;             // [1, N] f32 or bf16
+  const __nv_bfloat16* res;   // [M, N] or null
+  __nv_bfloat16* out;         // [M, N]
+  int M, N, nk, per_block, stages;  // stages: K / kWgK; per_block: kb / kWgK
+  int sw_bf16;
+};
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                           const __grid_constant__ CUtensorMap tb,
+                           const __grid_constant__ CUtensorMap to, const WgParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = s8wg::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t out_tile = base + kWgStages * kWgStage;  // two 64-row halves
+  const uint32_t full = out_tile + kWgOut;  // full[s], then empty[s]
+  const uint32_t empty = full + 8 * kWgStages;
+  // The warp index broadcast from lane 0, so that ptxas sees each role's
+  // branch as uniform: a divergent path around the wgmmas serialises them.
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int n0 = blockIdx.x * kWgCols, m0 = blockIdx.y * kWgRows;
+
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      s8wg::mbar_init(full + 8 * s, 1);
+      s8wg::mbar_init(empty + 8 * s, kWgConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    // Producer: one thread keeps the ring full.
+    if (lane == 0) {
+      for (int i = 0; i < p.stages; ++i) {
+        const int s = i % kWgStages;
+        s8wg::mbar_wait(empty + 8 * s, ((i / kWgStages) & 1) ^ 1);
+        const uint32_t st = base + s * kWgStage;
+        s8wg::mbar_expect_tx(full + 8 * s, kWgStage);
+        s8wg::tma_2d(st, &ta, full + 8 * s, i * kWgK, m0);
+        s8wg::tma_2d(st + kWgTile, &tb, full + 8 * s, i * kWgK, n0);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup cw: rows cw*64..cw*64+63 of the tile, all 128 columns.
+  const int cw = warp / 4, w = warp % 4, g = lane / 4, t = lane % 4;
+  const int r0 = m0 + cw * 64 + w * 16 + g;  // this thread's rows: r0, r0 + 8
+  int acc[64];
+  float accf[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    acc[i] = 0;
+    accf[i] = 0.f;
+  }
+  int i = 0;  // stage count
+  for (int b = 0; b < p.nk; ++b) {
+    // The block's row scales, read while its products run.
+    float sc[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sc[h] = r0 + 8 * h < p.M ? __ldg(p.sx + (long long)(r0 + 8 * h) * p.nk + b) : 0.f;
+    }
+    for (int step = 0; step < p.per_block; ++step, ++i) {
+      const int s = i % kWgStages;
+      s8wg::mbar_wait(full + 8 * s, (i / kWgStages) & 1);
+      const uint32_t a = base + s * kWgStage + cw * 64 * kWgK;
+      const uint32_t bt = base + s * kWgStage + kWgTile;
+      s8wg::reg_fence(acc);
+      s8wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgK / 32; ++kk) {
+        // The block's first product overwrites the sums of the one before.
+        s8wg::mma_n128(acc, s8wg::desc_k128(a + kk * 32), s8wg::desc_k128(bt + kk * 32),
+                       step > 0 || kk > 0);
+      }
+      s8wg::commit();
+      // The previous stage's products are done: release it.
+      s8wg::wait<1>();
+      s8wg::reg_fence(acc);
+      if (step > 0) s8wg::mbar_arrive(empty + 8 * ((i + kWgStages - 1) % kWgStages));
+    }
+    // The K-block ends: accf += float(acc) * sx[row, b], in block order.
+    s8wg::wait<0>();
+    s8wg::reg_fence(acc);
+    s8wg::mbar_arrive(empty + 8 * ((i + kWgStages - 1) % kWgStages));
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int q = 4 * j + 2 * h + e;
+          accf[q] = __fadd_rn(accf[q], __fmul_rn(__int2float_rn(acc[q]), sc[h]));
+        }
+      }
+    }
+  }
+
+  // Epilogue: times the column scale, plus the residual (rows below M), in
+  // the plain version's order; the bf16 tile goes to shared memory in two
+  // panels of 64 columns under the 128-byte swizzle (a warp's stores hit 32
+  // banks) and leaves by TMA, which drops the rows past M. The scales and a
+  // row's residual are loaded in one batch before any store.
+  float swv[32];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      swv[2 * j + e] = col_scale(p.sw, p.sw_bf16, n0 + j * 8 + 2 * t + e);
+    }
+  }
+  uint8_t* const half =
+      reinterpret_cast<uint8_t*>(smem_raw) + (out_tile - raw) + cw * (kWgOut / 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int lrow = w * 16 + g + 8 * h;  // row in this warpgroup's half
+    const int row = m0 + cw * 64 + lrow;
+    float2 rv[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      rv[j] = p.res == nullptr || row >= p.M
+                  ? make_float2(0.f, 0.f)
+                  : __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                        p.res + (long long)row * p.N + n0 + j * 8 + 2 * t));
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float o0 = __fmul_rn(accf[4 * j + 2 * h], swv[2 * j]);
+      float o1 = __fmul_rn(accf[4 * j + 2 * h + 1], swv[2 * j + 1]);
+      if (p.res != nullptr) {
+        o0 = __fadd_rn(o0, rv[j].x);
+        o1 = __fadd_rn(o1, rv[j].y);
+      }
+      const int off = (j / 8) * (64 * 128) + lrow * 128 + (((j % 8) ^ (lrow % 8)) << 4) + 4 * t;
+      *reinterpret_cast<__nv_bfloat162*>(half + off) = __floats2bfloat162_rn(o0, o1);
+    }
+  }
+  s8wg::fence_async_smem();
+  s8wg::named_barrier(1 + cw, 128);
+  if (w == 0 && lane == 0) {
+    const uint32_t src = out_tile + cw * (kWgOut / 2);
+    s8wg::tma_store_2d(&to, src, n0, m0 + cw * 64);
+    s8wg::tma_store_2d(&to, src + 64 * 128, n0 + 64, m0 + cw * 64);
+    s8wg::tma_store_drain();  // the block's shared memory outlives the reads
+  }
+}
+
+// A row-major [rows, cols] matrix as a 2-D tensor map (cols innermost) with
+// boxes of box_rows rows x 128 bytes under the 128-byte swizzle; rows past
+// the end read as zero and are not written.
+CUresult encode_2d(EncodeTiled fn, CUtensorMap* map, CUtensorMapDataType type, int esize,
+                   const void* ptr, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * esize};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / esize),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t ones[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The quantize pass, then the wgmma GEMM over the K-major weight wt [N, K].
+int launch_wgmma(const __nv_bfloat16* x, const int8_t* wt, const WgParams& p, int8_t* x8,
+                 int K, int kb, cudaStream_t stream) {
+  if (p.M <= 0 || K <= 0 || K % kWgK || p.N <= 0 || p.N % kWgCols || kb <= 0 || kb % kWgK ||
+      K % kb) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return -1000;
+  CUtensorMap ta, tb, to;
+  const CUtensorMapDataType s8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  CUresult rc = encode_2d(fn, &ta, s8, 1, x8, p.M, K, kWgRows);
+  if (rc == CUDA_SUCCESS) rc = encode_2d(fn, &tb, s8, 1, wt, p.N, K, kWgCols);
+  if (rc == CUDA_SUCCESS) {
+    rc = encode_2d(fn, &to, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.out, p.M, p.N, 64);
+  }
+  if (rc != CUDA_SUCCESS) return -static_cast<int>(rc);
+  // The shared-memory cap is raised once per device; every launch asks for
+  // the same size.
+  static bool raised[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64 || !raised[dev]) {
+    err = cudaFuncSetAttribute(int8_gemm_wgmma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) raised[dev] = true;
+  }
+  err = launch_quantize(x, x8, const_cast<float*>(p.sx), nullptr, p.M, K, kb, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(p.N / kWgCols, (p.M + kWgRows - 1) / kWgRows);  // N tiles fastest
+  int8_gemm_wgmma_kernel<<<grid, kWgThreads, kWgSmem, stream>>>(ta, tb, to, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+static_assert(kWgSmem <= kMaxSmem, "the B3 ring does not fit shared memory");
+
 }  // namespace
 
 // B3: out[M, N] = W8A8(x[M, K] bf16, w8[K, N] int8, sw[1, N]) (+ res[M, N]),
-// sw f32, or bf16 when sw_bf16 is 1 (the decoder's scale leaves).
+// sw f32, or bf16 when sw_bf16 is 1 (the decoder's scale leaves). w8 is
+// K-major: w8 points at an [N, K] buffer, row n holding column n's K weights.
 // x8 [M, K] int8 and sx [M, K/kb] f32 are scratch the caller allocates.
-// Returns cudaGetLastError() after the launches (0 on success).
+// Returns 0 on success, a CUDA runtime error code when a launch or its setup
+// failed, -CUresult when a tensor map could not be encoded, -1000 when the
+// driver's cuTensorMapEncodeTiled could not be found.
 extern "C" int quantized_matmul_bf16(const void* x, const void* w8, const void* sw,
                                      const void* res, void* x8, void* sx, void* out,
                                      int M, int K, int N, int kb, int sw_bf16,
                                      void* stream) {
-  GemmParams p = params(x8, sx, w8, sw, out, M, K, N, N, kb);
+  WgParams p;
+  p.sx = static_cast<const float*>(sx);
+  p.sw = sw;
   p.res = static_cast<const __nv_bfloat16*>(res);
-  p.s_bf16 = sw_bf16;
-  return launch(static_cast<const __nv_bfloat16*>(x), p, static_cast<int8_t*>(x8),
-                static_cast<float*>(sx), false, static_cast<cudaStream_t>(stream));
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.M = M;
+  p.N = N;
+  p.nk = kb > 0 ? K / kb : 0;
+  p.per_block = kb / kWgK;
+  p.stages = K / kWgK;
+  p.sw_bf16 = sw_bf16;
+  return launch_wgmma(static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w8), p,
+                      static_cast<int8_t*>(x8), K, kb, static_cast<cudaStream_t>(stream));
 }
+
+// Dynamic shared memory of one B3 block, in bytes.
+extern "C" int quantized_matmul_smem_bytes() { return kWgSmem; }
 
 // B4: out[M, N] = act(x @ w0 * s0) * (x @ w1 * s1) over wp[K, 2N] int8 with
 // w0 at columns 0..N-1 and w1 at N..2N-1, scales sp[1, 2N]; act 0 gelu_new,

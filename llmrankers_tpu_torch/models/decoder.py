@@ -35,7 +35,8 @@ from torch import nn
 
 from ..ops.attention import apply_rope, mha, rms_norm, rope_cos_sin
 from .config import DecoderConfig
-from .quant import SCALE4_SUFFIX, SCALE_SUFFIX, _matmul, embed_rows, qmm, swiglu_ffn
+from .quant import (SCALE4_SUFFIX, SCALE_SUFFIX, _matmul, embed_rows, kmajor_leaves, qmm,
+                    swiglu_ffn)
 from ..utils.device import resolve_device
 from .t5 import _empty, _fill
 
@@ -85,9 +86,12 @@ class Decoder(nn.Module):
         self.use_flash = use_flash
         self.plain_kernels = False  # kernel sites call the plain versions
 
+        # B3's leaves (models/quant.py); the int8 head stays row-major
+        kmajor = kmajor_leaves({k: v for k, v in quant.items() if k not in HEAD_LEAVES})
+
         def leaf(name, shape):
             shape, dt = quant.get(name, (shape, dtype))
-            return _empty(shape, dt, device)
+            return _empty(shape, dt, device, name in kmajor)
 
         D, V = cfg.hidden_size, cfg.vocab_size
         self.embed = leaf("embed", (V, D))

@@ -2,7 +2,18 @@
 
 Counterpart of ``llmrankers_tpu/models/quant.py``. Every function gives the
 JAX function's leaves bit for bit on the same float weights (the formulas in
-f32, as JAX writes them), and weights keep the JAX layout ``[K, N]``.
+f32, as JAX writes them), and weights keep the JAX shape ``[K, N]``.
+
+Layout: the int8 layer leaves that the W8A8 GEMM (B3) reads are stored
+K-major (:func:`kmajor_leaves`): an ``[N, K]`` buffer seen through its
+transpose, shape ``[K, N]`` with stride ``(1, K)``, the same values and
+bytes as the row-major leaf. Hopper's int8 ``wgmma`` reads both operands
+K-major from shared memory only, so B3's kernel loads this buffer by TMA as
+it lies. The leaves of the gated kernels (B4: T5 ``wi_g``; B6: the
+decoder's ``w_gate`` and ``w_up``), the int4 leaves and the decoder's int8
+head stay row-major and contiguous. The allocators (``T5Stack``,
+``Decoder``) lay the leaves out through :func:`empty_leaf`, so every
+``copy_`` into them (the quantizers, ``params_from_jax``) keeps the layout.
 
 T5: symmetric per-output-channel int8 for every per-layer matmul weight,
 with f32 ``[1, N]`` scales under ``<name>_scale``. Embeddings, rel-pos
@@ -56,6 +67,35 @@ T5_PACKS = {
         ("wi_g", ("wi_0", "wi_1")),
     ),
 }
+
+
+# int8 leaves with a ``_scale`` leaf that the gated kernels read (B4, B6):
+# they stay row-major.
+GATED_LEAVES = ("wi_g", "w_gate", "w_up")
+
+
+def kmajor_leaves(specs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]]) -> frozenset:
+    """The layer leaves of ``specs`` (name -> (shape, dtype)) stored K-major:
+    every int8 leaf with a ``_scale`` leaf (the W8A8 sites, which B3 reads)
+    but :data:`GATED_LEAVES`. int4 leaves carry ``_scale4`` and are not
+    among them."""
+    return frozenset(name for name, (_, dt) in specs.items()
+                     if dt == torch.int8 and name + SCALE_SUFFIX in specs
+                     and name not in GATED_LEAVES)
+
+
+def empty_leaf(shape, dtype, device, kmajor: bool = False) -> torch.Tensor:
+    """An uninitialised leaf; a K-major ``[K, N]`` leaf is a contiguous
+    ``[N, K]`` buffer seen through its transpose (stride ``(1, K)``)."""
+    if kmajor:
+        K, N = shape
+        return torch.empty((N, K), dtype=dtype, device=device).t()
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def to_kmajor(w: torch.Tensor) -> torch.Tensor:
+    """``w`` [K, N] with the same values laid out K-major (stride ``(1, K)``)."""
+    return w.t().contiguous().t()
 
 
 def quantize_weight(w: torch.Tensor, dim: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -41,7 +41,7 @@ from ..ops.int8_matmul import (gated_matmul, gated_matmul_plain, quantized_matmu
                                quantized_matmul_plain)
 from ..utils.device import resolve_device
 from .config import T5Config
-from .quant import SCALE_SUFFIX, int8_layer_specs
+from .quant import SCALE_SUFFIX, empty_leaf, int8_layer_specs, kmajor_leaves
 
 
 def relative_position_bucket(
@@ -104,9 +104,8 @@ def _layer_shapes(cfg: T5Config, decoder: bool) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
-def _empty(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+def _empty(shape, dtype, device, kmajor: bool = False) -> nn.Parameter:
+    return nn.Parameter(empty_leaf(shape, dtype, device, kmajor), requires_grad=False)
 
 
 class T5Stack(nn.Module):
@@ -119,11 +118,12 @@ class T5Stack(nn.Module):
         shapes = _layer_shapes(cfg, decoder)
         specs = ({k: (s, None) for k, s in shapes.items()} if not quantized else
                  int8_layer_specs(shapes, "decoder" if decoder else "encoder"))
+        kmajor = kmajor_leaves(specs)  # B3's leaves (models/quant.py)
         self.rel_bias = _empty(
             (cfg.relative_attention_num_buckets, cfg.num_heads), dtype, device
         )
         self.layers = nn.ModuleList(
-            nn.ParameterDict({k: _empty(s, dt or dtype, device)
+            nn.ParameterDict({k: _empty(s, dt or dtype, device, k in kmajor)
                               for k, (s, dt) in specs.items()})
             for _ in range(n)
         )

@@ -16,7 +16,9 @@ over all of K.
 
 On a CUDA tensor :func:`quantized_matmul`, :func:`gated_matmul`,
 :func:`gated_matmul_pair` and :func:`int8_matmul` launch the hand-written
-kernels of ``csrc/int8_fusedq.cu`` (bf16 x, ``sm_90a``) or raise; on a CPU
+kernels of ``csrc/int8_fusedq.cu`` (bf16 x, ``sm_90a``) or raise;
+:func:`quantized_matmul` (B3, on ``wgmma``) takes its weight K-major
+(:func:`check_kmajor`), the others row-major and contiguous. On a CPU
 tensor they run the plain versions, which compute the same numbers step by
 step: the same quantized int8 values, exact integer sums (taken in float64,
 exact below 2^53), the same f32 fold order.
@@ -245,6 +247,23 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> Non
         raise ValueError(f"{name}: base pointer must be 16-byte aligned")
 
 
+def check_kmajor(name: str, w: torch.Tensor, K: int, N: int) -> None:
+    """Raise unless ``w`` is the K-major int8 ``[K, N]`` weight B3's kernel
+    loads by TMA: an ``[N, K]`` buffer seen through its transpose (stride
+    ``(1, K)``, ``models/quant.py::to_kmajor``) with a 16-byte-aligned base.
+    A row-major weight is refused, not copied."""
+    if w.dtype != torch.int8 or tuple(w.shape) != (K, N):
+        raise ValueError(f"{name}: the kernel takes an int8 [{K}, {N}] weight, got "
+                         f"{w.dtype} {list(w.shape)}")
+    if w.stride() != (1, K):
+        raise ValueError(f"{name}: the W8A8 kernel takes the weight K-major, an [N, K] "
+                         f"buffer seen as [K, N] with stride (1, {K}); got stride "
+                         f"{tuple(w.stride())}"
+                         + (" (row-major)" if w.is_contiguous() else ""))
+    if w.data_ptr() % 16:
+        raise ValueError(f"{name}: base pointer must be 16-byte aligned")
+
+
 def _check_scale(name: str, s: torch.Tensor, N: int, device) -> int:
     """A ``[1, N]`` column scale the kernel reads in place: f32, or bf16 (the
     decoder's leaves, widened exactly in the epilogue). Returns 1 for bf16."""
@@ -283,11 +302,12 @@ def quantized_matmul(
     leading dims.
 
     CPU tensors take :func:`quantized_matmul_plain`. CUDA tensors launch the
-    quantize pass and the GEMM of ``csrc/int8_fusedq.cu`` on the current
-    stream and add one to ``quantized_matmul.launches``; what the kernel
-    does not take raises: x other than contiguous bf16, K or N not a
-    multiple of 128, tensors off x's device, unaligned base pointers. Ragged
-    M is masked inside the kernel."""
+    quantize pass and the wgmma GEMM of ``csrc/int8_fusedq.cu`` on the
+    current stream and add one to ``quantized_matmul.launches``; what the
+    kernel does not take raises: x other than contiguous bf16, K or N not a
+    multiple of 128, a weight that is not K-major (:func:`check_kmajor`),
+    tensors off x's device, unaligned base pointers. Ragged M is masked
+    inside the kernel."""
     if x.device.type == "cpu":
         return quantized_matmul_plain(x, w8, sw, residual)
     lead, K = x.shape[:-1], x.shape[-1]
@@ -299,11 +319,16 @@ def quantized_matmul(
         if not residual.is_contiguous():
             raise ValueError("residual: the kernel takes a contiguous tensor")
         res2 = residual.reshape(M, N)
-    _check("w8", w8, torch.int8, (K, N), x.device)
+    if w8.device != x.device:
+        raise ValueError(f"w8: the kernel takes a tensor on {x.device}, got {w8.device}")
+    check_kmajor("w8", w8, K, N)
     sw_bf16 = _check_scale("sw", sw, N, x.device)
     if res2 is not None:
         _check("residual", res2, torch.bfloat16, (M, N), x.device)
     kb = kblock(K, N, x.dtype, residual is not None)
+    if kb % 128:
+        raise ValueError(f"quantized_matmul: the kernel takes K-blocks of whole 128 "
+                         f"columns, the rule gives {kb} at {K}x{N}")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out.reshape(*lead, N)
@@ -315,6 +340,12 @@ def quantized_matmul(
             x2.data_ptr(), w8.data_ptr(), sw.data_ptr(),
             None if res2 is None else res2.data_ptr(),
             x8.data_ptr(), sx.data_ptr(), out.data_ptr(), M, K, N, kb, sw_bf16, stream)
+    if rc == -1000:
+        raise RuntimeError("int8_fusedq quantized_matmul: the driver has no "
+                           "cuTensorMapEncodeTiled")
+    if rc < 0:
+        raise RuntimeError(f"int8_fusedq quantized_matmul: tensor map encoding failed "
+                           f"(CUresult {-rc})")
     if rc != 0:
         raise RuntimeError(f"int8_fusedq quantized_matmul launch failed: CUDA error {rc}")
     quantized_matmul.launches += 1

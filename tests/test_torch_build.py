@@ -63,6 +63,40 @@ def test_int8_source_has_its_entry_points():
     assert "cublas" not in (src + _source("int8_mma.cuh")).lower()
 
 
+def test_b3_runs_on_a_wgmma_kernel_fed_by_tma():
+    """B3's entry launches the quantize pass and the int8 wgmma kernel: s8
+    m64n128k32 products from shared-memory descriptors, both operands by 2-D
+    TMA under the 128-byte swizzle through an mbarrier ring of at least four
+    stages fed by a producer warp, the per-K-block fold in round-to-nearest
+    steps, the output tile stored by TMA; the role branch on a warp index
+    broadcast from lane 0 and the wait loop inside one asm block (a
+    divergent path makes ptxas serialise the wgmmas); B4, B6 and B9 stay on
+    the mma.sync kernel."""
+    src = _source("int8_fusedq.cu")
+    hdr = _source("int8_wgmma.cuh")
+    for inc in ('#include "int8_wgmma.cuh"', '#include "tma_encode.cuh"'):
+        assert inc in src
+    assert "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8" in hdr
+    for ptx in ("cp.async.bulk.tensor.2d", "mbarrier.try_wait.parity", "wgmma.wait_group",
+                "wgmma.fence", "wgmma.commit_group"):
+        assert ptx in hdr, ptx
+    assert "CU_TENSOR_MAP_SWIZZLE_128B" in src and "CU_TENSOR_MAP_DATA_TYPE_UINT8" in src
+    stages = int(src.split("constexpr int kWgStages = ")[1].split(";")[0])
+    assert stages >= 4
+    b3 = src.split('extern "C" int quantized_matmul_bf16(')[1].split('extern "C"')[0]
+    assert "launch_wgmma(" in b3 and "launch(" not in b3.replace("launch_wgmma(", "")
+    body = src.split("int8_gemm_wgmma_kernel(")[1].split("CUresult encode_2d(")[0]
+    assert "__fadd_rn(accf[q], __fmul_rn(__int2float_rn(acc[q]), sc[h]))" in body
+    assert "mma_sync" not in body and "ldmatrix" not in body
+    assert "__shfl_sync(0xffffffffu, tid / 32, 0)" in body and "tma_store_2d(" in body
+    wait = hdr.split("void mbar_wait(")[1].split("\n}\n")[0]
+    assert "while" not in wait and "mbarrier.try_wait.parity" in wait and "trap;" in wait
+    assert "cp.async.bulk.tensor.2d.global.shared::cta" in hdr
+    for entry in ("gated_matmul_bf16", "gated_matmul_pair_bf16", "int8_matmul_bf16"):
+        rest = src.split(f'extern "C" int {entry}(')[1].split('extern "C"')[0]
+        assert "launch_wgmma(" not in rest and ("launch(" in rest or "launch_gemm(" in rest)
+
+
 @pytest.mark.parametrize("entry", sorted(int8_matmul.ENTRIES))
 def test_int8_wrapper_argtypes_match_the_c_entries(entry):
     """The ctypes argument list of each W8A8 entry (pointers, ints, stream)
@@ -123,6 +157,8 @@ def test_flash_source_serves_the_three_layouts():
         mma = f.read()
     assert 'extern "C" int flash_attn_bf16(' in src
     assert src.count("__global__") == 1  # one kernel for every layout
+    assert '#include "tma_encode.cuh"' in src  # the encoder lookup, shared with B3
+    src += _source("tma_encode.cuh")
     for field in ("int group;", "int window;", "h / p.group", "o_hs",
                   "2ull * st[1]", "2ull * st[4]", "2ull * st[7]"):  # q, k, v head strides
         assert field in src

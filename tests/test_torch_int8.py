@@ -158,6 +158,43 @@ def test_wrappers_run_plain_versions_on_cpu():
         tint8.quantized_matmul(x.to("meta"), w8.to("meta"), sw.to("meta"))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [False, True])
+def test_plain_gives_the_same_bits_on_a_kmajor_weight(dtype, residual):
+    """B3's weights are stored K-major (an [N, K] buffer seen as [K, N]); the
+    plain version reads the view as it is and gives the bits it gives on a
+    contiguous copy."""
+    rng = np.random.RandomState(4)
+    M, K, N = 96, 2048, 384
+    x = _torch_x(_activations(rng, M, K), dtype)
+    w8, sw = map(torch.from_numpy, _int8_weight(rng, K, N))
+    res = _torch_x(rng.randn(M, N).astype(np.float32), dtype) if residual else None
+    wk = w8.t().contiguous().t()
+    assert wk.stride() == (1, K) and torch.equal(wk, w8)
+    got = tint8.quantized_matmul_plain(x, wk, sw, res)
+    want = tint8.quantized_matmul_plain(x, w8, sw, res)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_layout_check_rejects_a_row_major_weight():
+    """The B3 wrapper's layout check, on CPU tensors: it takes the K-major
+    view and refuses a row-major weight (naming the layout), another shape or
+    dtype, and an unaligned base, making no copy."""
+    K, N = 256, 384
+    w8 = torch.randint(-127, 128, (K, N), dtype=torch.int8)
+    wk = w8.t().contiguous().t()
+    tint8.check_kmajor("w8", wk, K, N)
+    with pytest.raises(ValueError, match=r"K-major.*stride \(1, 256\).*row-major"):
+        tint8.check_kmajor("w8", w8, K, N)
+    with pytest.raises(ValueError, match="int8"):
+        tint8.check_kmajor("w8", wk.float(), K, N)
+    with pytest.raises(ValueError, match=r"\[256, 256\]"):
+        tint8.check_kmajor("w8", wk, K, 256)
+    buf = torch.zeros(N * K + 1, dtype=torch.int8)[1:]  # base one byte off
+    with pytest.raises(ValueError, match="16-byte"):
+        tint8.check_kmajor("w8", buf.view(N, K).t(), K, N)
+
+
 # ---------------------------------------------------------------------------
 # flash_mha_packed
 # ---------------------------------------------------------------------------

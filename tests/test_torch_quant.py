@@ -107,6 +107,42 @@ def test_quantize_t5_params_matches_jax(variant):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+@pytest.mark.parametrize("source", ["quantizer", "params_from_jax"])
+@pytest.mark.parametrize("variant", ["flan", "relu"])
+def test_b3_leaves_are_kmajor(variant, source):
+    """Every int8 leaf that the W8A8 GEMM (B3) reads is held K-major (shape
+    [K, N], stride (1, K)) with the JAX leaf's values bit for bit, whether it
+    came from the quantizer or from the JAX tree; the gated kernel's wi_g
+    stays contiguous [K, N]."""
+    cfg = CFG128 if variant == "flan" else dataclasses.replace(
+        CFG128, feed_forward_proj="relu")
+    tree = _tree(cfg)
+    want = jax.tree.map(np.asarray, jquant.quantize_t5_params(
+        jax.tree.map(jnp.asarray, tree), pack=True))
+    if source == "quantizer":
+        got = tquant.quantize_t5_params(
+            tt5.params_from_jax(tree, _torch_cfg(cfg), device="cpu"))
+    else:
+        got = tt5.params_from_jax(want, _torch_cfg(cfg), device="cpu")
+    b3 = {"encoder": {"qkv", "o", "wo"}, "decoder": {"qkv", "o", "cq", "ckv", "co", "wo"}}
+    for block in ("encoder", "decoder"):
+        names = b3[block] | ({"wi"} if variant == "relu" else set())
+        layers = getattr(got, block).layers
+        assert tquant.kmajor_leaves({k: (tuple(p.shape), p.dtype)
+                                     for k, p in layers[0].items()}) == names
+        for key, leaf in want[block]["layers"].items():
+            for i, lp in enumerate(layers):
+                p = lp[key]
+                K, N = leaf.shape[1:] if leaf.ndim == 3 else (None, None)
+                if key in names:
+                    assert p.stride() == (1, K) and p.shape == (K, N), (key, p.stride())
+                else:
+                    assert p.is_contiguous(), key
+                np.testing.assert_array_equal(p.float().numpy(), leaf[i].astype(np.float32))
+    if variant == "flan":
+        assert got.encoder.layers[0]["wi_g"].is_contiguous()
+
+
 def test_pack_false_is_not_ported():
     model = tt5.params_from_jax(_tree(CFG128), _torch_cfg(CFG128), device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):

@@ -145,6 +145,46 @@ def test_quantize_decoder_params_matches_jax(mode, tied):
     assert loaded.state_dict().keys() == got.state_dict().keys()
 
 
+@pytest.mark.parametrize("source", ["quantizer", "params_from_jax"])
+@pytest.mark.parametrize("mode", ["int8", "int4_all", "int4_attn"])
+def test_b3_leaves_are_kmajor(mode, source):
+    """The int8 sites that the W8A8 GEMM (B3) reads (wq, wk, wv, wo, w_down)
+    are held K-major (shape [K, N], stride (1, K)), bit for bit the JAX
+    leaves, from the quantizer and from the JAX tree; the gated pair's w_gate
+    and w_up, the int4 leaves and the int8 head stay contiguous."""
+    jcfg, tcfg = _cfgs(tied=mode == "int8")
+    if mode == "int4_attn":  # int4 FFN, int8 attention, as at Qwen2.5-3B's widths
+        jfn = functools.partial(jquant.quantize_decoder_params_int4,
+                                min_site_params=128 * 256)
+        tfn = functools.partial(tquant.quantize_decoder_params_int4,
+                                min_site_params=128 * 256)
+    else:
+        jfn, tfn = MODES[mode]
+    tree = _tree(jcfg)
+    want = jax.tree.map(np.asarray, jfn(jax.tree.map(jnp.asarray, tree)))
+    if source == "quantizer":
+        got = tfn(tdec.params_from_jax(tree, tcfg, device="cpu"))
+    else:
+        got = tdec.params_from_jax(want, tcfg, device="cpu")
+    lp0 = got.layers[0]
+    int8 = {k for k in tquant.QUANT_TARGETS if k + tquant.SCALE_SUFFIX in lp0}
+    names = int8 - {"w_gate", "w_up"}
+    assert int8 == {"int8": set(tquant.QUANT_TARGETS), "int4_all": set(),
+                    "int4_attn": {"wq", "wk", "wv", "wo"}}[mode]
+    for key, leaf in want["layers"].items():
+        for i, lp in enumerate(got.layers):
+            p = lp[key]
+            if key in names:
+                K, N = leaf.shape[1:]
+                assert p.stride() == (1, K) and p.shape == (K, N), (key, p.stride())
+            else:
+                assert p.is_contiguous(), key
+            _assert_leaf(p, np.asarray(leaf)[i], f"{key}[{i}]")
+    for head in ("embed", "lm_head"):
+        if getattr(got, head, None) is not None:
+            assert getattr(got, head).is_contiguous(), head
+
+
 def test_int4_cut_off_at_qwen_widths():
     """At Qwen2.5-3B's widths the default cut-off packs the FFN as int4 (down
     at group 256) and keeps the attention projections int8."""
