@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the flash kernel (or, with --kvq, B8; with --int8, B3) of two checkouts in turns on one GPU.
+"""Time the flash kernel (or B8, B3 or B7) of two checkouts in turns on one GPU.
 
 Run from the root of a checkout, with another checkout (for example the
 parent commit, unpacked with ``git archive HEAD | tar -x -C build/parent``)
@@ -52,6 +52,18 @@ this tree's worker also checks the output against the plain version and
 times bf16 ``torch.matmul`` on the same shape as a yardstick. B3's bound is
 the larger of the int8 operations at 1,979 TOP/s and the bytes of x, the
 weight, the scales, the residual and the output at 3.35 TB/s.
+
+With ``--int4`` it times the W4A8 GEMM B7
+(``ops/int4_matmul.py::quantized_matmul_int4``) the same way, at
+``chip_smoke.py`` phase 9's sites and at decode's M 8 (:data:`B7_SITES`):
+per site the whole call from CUDA events, the GEMM's and the quantize
+pass's device times from torch.profiler, and a sha256 of the output, which
+must be the same for both trees and every run (each tree gets the packed
+weight in the layout its wrapper takes: K-major where it has
+``int4_matmul.check_kmajor``, else row-major); this tree's worker also checks
+the output against the plain version and times bf16 ``torch.matmul`` over the
+dequantized weight as a yardstick. The bound counts the packed weight's
+bytes, not a dequantized one's.
 """
 from __future__ import annotations
 
@@ -84,6 +96,14 @@ B3_SITES = (("qkv", B3_M, 2048, 6144, False, False), ("wo", B3_M, 5120, 2048, Fa
             ("Qwen w_down", B3_M, 11008, 2048, False, True))
 H100_INT8_OPS = 1979e12
 
+# B7's sites, (name, M, K, N, residual): Qwen2.5-3B's int4 FFN at M = B*L
+# (gate/up at G 512, down at G 256), a ragged M with a residual, and both
+# sites at decode's M 8 (batch 8, one token). chip_smoke.py phase 9 checks
+# B7 at the same sites.
+B7_SITES = (("gate/up", B3_M, 2048, 11008, False), ("down", B3_M, 11008, 2048, False),
+            ("ragged+res", 1000, 2048, 11008, True),
+            ("gate/up M 8", 8, 2048, 11008, False), ("down M 8", 8, 11008, 2048, False))
+
 
 def int8_operands(gen, M, K, N):
     """bf16 activations [M, K] with per-row scales, outlier columns and one
@@ -99,6 +119,19 @@ def int8_operands(gen, M, K, N):
     x[7] = 0.0
     w8, sw = quantize_weight(torch.randn(K, N, generator=gen, device=dev) * K**-0.5)
     return x.bfloat16(), w8.contiguous(), sw.contiguous()
+
+
+def int4_operands(gen, M, K, N, residual):
+    """The activations of :func:`int8_operands`, a packed int4 weight
+    [K/2, N] (row-major) with its f32 group scales from ``pack_int4``, and a
+    bf16 residual [M, N] or None."""
+    import torch
+    from llmrankers_tpu_torch.ops.int4_matmul import pack_int4
+
+    x, _, _ = int8_operands(gen, M, K, 128)
+    p4, sw = pack_int4(torch.randn(K, N, generator=gen, device="cuda") * K**-0.5)
+    res = torch.randn(M, N, generator=gen, device="cuda").bfloat16() if residual else None
+    return x, p4.contiguous(), sw.contiguous(), res
 
 
 def device_ms_by_kernel(fn, calls=5, attempts=5) -> dict:
@@ -287,14 +320,57 @@ def _kvq_worker(root: str, check: bool) -> dict:
     return cases
 
 
+def _gemm_record(call, ops, tensors, gemm_key) -> dict:
+    """One GEMM site of ``--int8``/``--int4``: the whole call's ms from CUDA
+    events (mean of 20 after 3), the GEMM's (kernels named with
+    ``gemm_key``) and the quantize pass's device ms from torch.profiler, the
+    kernels one call launches, the bound, and the output's sha256."""
+    import hashlib
+
+    import torch
+    got = call()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(3):
+        call()
+    start.record()
+    for _ in range(20):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    dev = device_ms_by_kernel(call)
+    nbytes = sum(t.numel() * t.element_size() for t in (*tensors, got) if t is not None)
+    return got, {
+        "ms": start.elapsed_time(end) / 20, "ops": ops,
+        "gemm_ms": sum(v for k, v in dev.items() if gemm_key in k),
+        "quantize_ms": sum(v for k, v in dev.items() if "quantize_blocks" in k),
+        "kernels": sorted(dev),
+        "bound_ms": max(ops / H100_INT8_OPS, nbytes / H100_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if ops / H100_INT8_OPS > nbytes / H100_BYTES_PER_S
+        else "bytes",
+        "sha256": hashlib.sha256(got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()}
+
+
+def _yardstick_ms(x, wb) -> float:
+    """bf16 ``torch.matmul`` of x by the dequantized weight: mean of 10."""
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(2):
+        x @ wb
+    start.record()
+    for _ in range(10):
+        x @ wb
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 10
+
+
 def _int8_worker(root: str, check: bool) -> dict:
     """B3 at the phase-5 sites (module docstring): per site the whole call's
     ms from CUDA events, the GEMM's and the quantize pass's device ms from
     torch.profiler, and a sha256 of the output. A tree whose wrapper checks
     for K-major weights (``int8_matmul.check_kmajor``) gets them K-major, the
     same values; an older tree gets them row-major."""
-    import hashlib
-
     sys.path.insert(0, root)
     import torch
     from llmrankers_tpu_torch.ops import int8_matmul
@@ -309,47 +385,46 @@ def _int8_worker(root: str, check: bool) -> dict:
             sw = sw.bfloat16()
         res = torch.randn(M, N, generator=gen, device="cuda").bfloat16() if with_res else None
         wk = w8.t().contiguous().t() if kmajor else w8
-
-        def call():
-            return int8_matmul.quantized_matmul(x, wk, sw, residual=res)
-
-        got = call()
-        torch.cuda.synchronize()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        for _ in range(3):
-            call()
-        start.record()
-        for _ in range(20):
-            call()
-        end.record()
-        torch.cuda.synchronize()
-        dev = device_ms_by_kernel(call)
-        nbytes = sum(t.numel() * t.element_size() for t in (x, w8, sw, res, got)
-                     if t is not None)
-        ops = 2 * M * K * N
-        rec = {"ms": start.elapsed_time(end) / 20, "ops": ops,
-               "gemm_ms": sum(v for k, v in dev.items() if "int8_gemm" in k),
-               "quantize_ms": sum(v for k, v in dev.items() if "quantize_blocks" in k),
-               "kernels": sorted(dev),
-               "bound_ms": max(ops / H100_INT8_OPS, nbytes / H100_BYTES_PER_S) * 1e3,
-               "bound_by": "operations" if ops / H100_INT8_OPS > nbytes / H100_BYTES_PER_S
-               else "bytes",
-               "sha256": hashlib.sha256(got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()}
+        got, rec = _gemm_record(lambda: int8_matmul.quantized_matmul(x, wk, sw, residual=res),
+                                2 * M * K * N, (x, w8, sw, res), "int8_gemm")
         if check:
             want = int8_matmul.quantized_matmul_plain(x, w8, sw, res)
             rec["equal_to_plain"] = bool(torch.equal(got, want))
-            wb = (w8.bfloat16() * sw.bfloat16()).contiguous()
-            for _ in range(2):
-                x @ wb
-            start.record()
-            for _ in range(10):
-                x @ wb
-            end.record()
-            torch.cuda.synchronize()
-            rec["bf16_matmul_ms"] = start.elapsed_time(end) / 10
-            del want, wb
+            rec["bf16_matmul_ms"] = _yardstick_ms(x, (w8.bfloat16() * sw.bfloat16()).contiguous())
+            del want
         cases[site] = rec
         del x, w8, wk, sw, res, got
+        torch.cuda.empty_cache()
+    return cases
+
+
+def _int4_worker(root: str, check: bool) -> dict:
+    """B7 at :data:`B7_SITES` (module docstring), as :func:`_int8_worker`
+    times B3. A tree whose wrapper checks for K-major packed weights
+    (``int4_matmul.check_kmajor``) gets them K-major, the same bytes; an
+    older tree gets them row-major."""
+    sys.path.insert(0, root)
+    import torch
+    from llmrankers_tpu_torch.ops import int4_matmul
+
+    int4_matmul._lib()  # build before timing
+    kmajor = hasattr(int4_matmul, "check_kmajor")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = {}
+    for site, M, K, N, with_res in B7_SITES:
+        x, p4, sw, res = int4_operands(gen, M, K, N, with_res)
+        pk = p4.t().contiguous().t() if kmajor else p4
+        got, rec = _gemm_record(
+            lambda: int4_matmul.quantized_matmul_int4(x, pk, sw, residual=res),
+            2 * M * K * N, (x, p4, sw, res), "w4a8_gemm")
+        if check:
+            want = int4_matmul.quantized_matmul_int4_plain(x, p4, sw, res)
+            rec["equal_to_plain"] = bool(torch.equal(got, want))
+            rec["bf16_matmul_ms"] = _yardstick_ms(
+                x, int4_matmul.unpack_int4(p4, sw).bfloat16())
+            del want
+        cases[site] = rec
+        del x, p4, pk, sw, res, got
         torch.cuda.empty_cache()
     return cases
 
@@ -507,9 +582,13 @@ def main():
                       help="time the decode-attention kernel B8 instead, cold L2")
     kind.add_argument("--int8", action="store_true",
                       help="time the W8A8 GEMM B3 instead, at chip_smoke.py phase 5's sites")
+    kind.add_argument("--int4", action="store_true",
+                      help="time the W4A8 GEMM B7 instead, at chip_smoke.py phase 9's sites "
+                           "and at M 8")
     opts = parser.parse_args()
     if opts.worker:
-        work = _kvq_worker if opts.kvq else _int8_worker if opts.int8 else _worker
+        work = (_kvq_worker if opts.kvq else _int8_worker if opts.int8
+                else _int4_worker if opts.int4 else _worker)
         print(json.dumps(work(opts.worker, opts.check)))
         return
     import torch
@@ -525,18 +604,17 @@ def main():
         cmd = [sys.executable, os.path.join(ROOT, "chip_flash_ab.py"), "--worker", roots[tree]]
         if tree == "change" and not runs["change"]:
             cmd.append("--check")
-        if opts.kvq:
-            cmd.append("--kvq")
-        if opts.int8:
-            cmd.append("--int8")
+        for kind in ("kvq", "int8", "int4"):
+            if getattr(opts, kind):
+                cmd.append("--" + kind)
         res = subprocess.run(cmd, capture_output=True, text=True, cwd=roots[tree])
         if res.returncode != 0:
             sys.exit(f"worker {tree} failed:\n{res.stderr[-4000:]}")
         runs[tree].append(json.loads(res.stdout.strip().splitlines()[-1]))
     if opts.kvq:
         return _kvq_report(runs, smi)
-    if opts.int8:
-        return _int8_report(runs, smi)
+    if opts.int8 or opts.int4:
+        return _gemm_report("B3" if opts.int8 else "B7", runs, smi)
     out = {}
     for name, first in runs["change"][0].items():
         base = [r[name]["ms"] for r in runs["baseline"]]
@@ -555,10 +633,10 @@ def main():
     print(json.dumps(out))
 
 
-def _int8_report(runs, smi):
-    """Per site both trees' call and GEMM times; exits non-zero when an
-    output's hash differs between the trees or between runs, or this tree's
-    output is not its plain version's."""
+def _gemm_report(kernel, runs, smi):
+    """Per site both trees' call and GEMM times (``kernel`` B3 or B7); exits
+    non-zero when an output's hash differs between the trees or between runs,
+    or this tree's output is not its plain version's."""
     out, bad = {}, []
     for site, first in runs["change"][0].items():
         recs = {tree: [r[site] for r in runs[tree]] for tree in runs}
@@ -582,8 +660,8 @@ def _int8_report(runs, smi):
             "baseline_kernels": recs["baseline"][0]["kernels"],
             "change_kernels": first["kernels"],
             "sha256_equal": len(hashes) == 1, "equal_to_plain": first["equal_to_plain"]}
-        print(f"B3 {site}: call baseline {base[0]:.4f}/{base[1]:.4f} ms, change {new[0]:.4f}/"
-              f"{new[1]:.4f} ms ({o['speedup']:.2f}x, {o['call_tops']:.1f} TOP/s); device GEMM "
+        print(f"{kernel} {site}: call baseline {base[0]:.4f}/{base[1]:.4f} ms, change "
+              f"{new[0]:.4f}/{new[1]:.4f} ms ({o['speedup']:.2f}x, {o['call_tops']:.1f} TOP/s); device GEMM "
               "baseline " + "/".join(f"{x:.4f}" for x in o["baseline_gemm_ms"])
               + " ms, change " + "/".join(f"{x:.4f}" for x in gemm)
               + f" ms ({o['gemm_tops']:.1f} TOP/s, {o['gemm_over_bound']:.2f}x the bound "
@@ -595,7 +673,7 @@ def _int8_report(runs, smi):
     print(smi)
     print(json.dumps(out))
     if bad:
-        sys.exit(f"B3 outputs differ between the trees or from the plain version at {bad}")
+        sys.exit(f"{kernel} outputs differ between the trees or from the plain version at {bad}")
 
 
 def _kvq_report(runs, smi):

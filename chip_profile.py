@@ -89,6 +89,9 @@ FAMILIES = (  # first match wins, on the lower-cased kernel name
 )
 
 
+B7_KERNEL = "w4a8_gemm_wgmma_kernel"  # B7's GEMM; its quantize pass is quantize_blocks_kernel
+
+
 def _family(name: str) -> str:
     low = name.lower()
     for family, keys in FAMILIES:
@@ -154,6 +157,7 @@ def site_times(ms=(1024, 20480), rounds=6):
             s8 = sw.bfloat16()
             p4, s4 = int4_matmul.pack_int4(torch.randn(K, N, generator=gen, device="cuda")
                                            * K**-0.5)
+            p4 = to_kmajor(p4)  # B7 takes its packed weight K-major, as the model holds it
             routes = {
                 "bf16": lambda: x @ wb,
                 "w8a16": lambda: x @ (w8.to(s8.dtype) * s8),
@@ -189,6 +193,9 @@ def _profile(fn):
     total_us = sum(us for _, us, _ in rows)
     if total_us == 0:
         raise RuntimeError("the profiler recorded no device time")
+    b7 = [name for name, _, _ in rows if _family(name) == "w4a8 gemm (B7)"]
+    if not all(B7_KERNEL in name for name in b7):
+        raise RuntimeError(f"kernels other than {B7_KERNEL} under w4a8 gemm (B7): {b7}")
     by_family = {}
     for name, us, _ in rows:
         by_family[_family(name)] = by_family.get(_family(name), 0.0) + us / 1e3
@@ -310,6 +317,12 @@ def main():
         if b3 != launches["quantized_matmul"] or old != launches["int8_matmul"]:
             raise RuntimeError(f"{b3} int8_gemm_wgmma_kernel and {old} int8_gemm_kernel<false> "
                                f"device launches for {launches['quantized_matmul']} B3 calls")
+    if launches["quantized_matmul_int4"]:  # B7's launches ran its wgmma kernel, no other
+        b7 = {name: n for name, _, n in rows if _family(name) == "w4a8 gemm (B7)"}
+        if (sum(b7.values()) != launches["quantized_matmul_int4"]
+                or not all(B7_KERNEL in name for name in b7)):
+            raise RuntimeError(f"device launches {b7} under w4a8 gemm (B7) for "
+                               f"{launches['quantized_matmul_int4']} B7 calls")
     by_family = {}
     for name, us, _ in rows:
         by_family[_family(name)] = by_family.get(_family(name), 0.0) + us

@@ -13,7 +13,8 @@ nvcc per source, side by side) and then, one line per phase:
    ``kvq_decode.cu`` and prints the build time and ptxas's registers and
    spills (the flash kernel and B8 per instance, with their stack and
    dynamic shared memory, which must match the wrappers' own plans; a spill
-   store in the flash kernel fails);
+   store in the flash kernel or B7, or ptxas's warning that it serialised a
+   kernel's wgmmas (C7515, C7518), fails);
 3. B1: holds the flash kernel against its plain PyTorch version at the bf16
    path's shapes (flan-t5-large encoder: B 32, L 512 and 640, H 16, Dh 64,
    a rel-pos bias table of std 1 as in a trained model, right padding, one
@@ -39,7 +40,8 @@ nvcc per source, side by side) and then, one line per phase:
    in a worker process) and bf16 ``torch.matmul`` on the same shape as a
    yardstick;
 6. B4: the gated GEMM at xl wi_g with gelu_new, the same gate plus a stated
-   tanh allowance; swapped halves and relu must fail;
+   tanh allowance; swapped halves and relu must fail; bf16 ``torch.matmul``
+   over the dequantized wi_g as a yardstick;
 7. B5: the GQA flash kernel on [B, H, L, Dh] views of the projections at
    Qwen2.5-3B's attention shapes (H 16, KV 2, Dh 128): (a) a left-padded
    causal batch, B 32, L 640, one all-padding row; (b) a shared-prefix
@@ -54,10 +56,16 @@ nvcc per source, side by side) and then, one line per phase:
    ([20480, 2048] x 2 x [2048, 11008], silu), one bf16 ulp plus a silu
    allowance; gate and up swapped must fail; the two bf16 products'
    torch.matmul time as a yardstick;
-9. B7: the W4A8 GEMM at Qwen2.5-3B's int4 FFN sites (gate/up, G 512; down,
-   G 256) and a ragged M with a residual, one bf16 ulp; the zero-point term
-   dropped, group scales rolled by one group and the nibble planes swapped
-   must fail;
+9. B7: the W4A8 GEMM (its wgmma kernel's registers and shared memory from
+   the build log) on K-major packed weights, as the models hold them, at
+   Qwen2.5-3B's int4 FFN sites (gate/up, G 512; down, G 256), a ragged M
+   with a residual and both sites at decode's M 8: every output equal to the
+   plain version bit for bit; the zero-point term dropped, group scales
+   rolled by one group and the nibble planes swapped must fail the one-ulp
+   gate, and a row-major packed weight must raise; per site the whole
+   call's time (CUDA events), the GEMM's and the quantize pass's device
+   times (torch.profiler, in a worker process) and bf16 ``torch.matmul``
+   over the dequantized weight as a yardstick;
 10. B9: int8_matmul on activations quantized per row, at B3's qkv shape, one
     bf16 ulp; sx rolled by one row must fail; torch._int_mm's time as a
     yardstick;
@@ -293,13 +301,24 @@ def _ptxas_functions(log: str):
     return out
 
 
+# ptxas's warnings that it serialised a kernel's wgmmas (C7515, C7518): a
+# divergent path or a call around them, which costs much of their rate.
+WGMMA_SERIALISED = ("C7515", "C7518", "wgmma.mma_async instructions are serialized")
+
+
 def phase_build():
     tic = time.perf_counter()
     _build.load_all(SOURCES)
     dt = time.perf_counter() - tic
     parts = []
     for name in SOURCES:
-        funcs = _ptxas_functions(_build.build_log(name))
+        log = _build.build_log(name)
+        serialised = [ln for ln in log.splitlines() if any(w in ln for w in WGMMA_SERIALISED)]
+        if serialised:
+            raise AssertionError(f"{name}.cu: ptxas serialised the wgmmas: {serialised}")
+        funcs = _ptxas_functions(log)
+        if name == "int4_w4a8" and any(f[2] for f in funcs):
+            raise AssertionError(f"int4_w4a8.cu spills: {funcs}")
         if name == "flash_blhd":
             parts.append(_flash_build_text(funcs))
             continue
@@ -309,7 +328,8 @@ def phase_build():
         parts.append(f"{name}.cu: {', '.join(str(f[1]) for f in funcs) or 'already built'}"
                      f" registers; spill stores {max((f[2] for f in funcs), default=0)} bytes")
     print(f"[2/{N_PHASES}] built {len(SOURCES)} sources with nvcc side by side in "
-          f"{dt:.2f} s (ptxas per kernel: {' | '.join(parts)})")
+          f"{dt:.2f} s (ptxas per kernel: {' | '.join(parts)}); no wgmma serialised "
+          f"(C7515/C7518)")
 
 
 def _kvq_build_text(funcs) -> str:
@@ -520,34 +540,50 @@ def _ulp_gate(got, want, allowance=0.0):
 B3_KERNEL = "int8_gemm_wgmma_kernel"  # B3's GEMM; the quantize pass is quantize_blocks_kernel
 
 
-def _b3_build_text() -> str:
-    """B3's kernel in ptxas's log (registers, spill stores) and its dynamic
-    shared memory."""
-    funcs = [f for f in _ptxas_functions(_build.build_log("int8_fusedq")) if B3_KERNEL in f[0]]
-    smem = int8_matmul._lib().quantized_matmul_smem_bytes()
+B7_KERNEL = "w4a8_gemm_wgmma_kernel"  # B7's GEMM; the quantize pass is quantize_blocks_kernel
+
+
+def _gemm_build_text(source, kernel, smem) -> str:
+    """A wgmma GEMM's kernel in ptxas's log of ``source`` (registers, spill
+    stores) and its dynamic shared memory ``smem``."""
+    funcs = [f for f in _ptxas_functions(_build.build_log(source)) if kernel in f[0]]
     regs = (f"{funcs[0][1]} registers, {funcs[0][2]} B spill stores" if funcs
             else "registers not in this process's build log (already built)")
-    return f"{B3_KERNEL}: {regs}, {smem} B dynamic shared memory"
+    return f"{kernel}: {regs}, {smem} B dynamic shared memory"
 
 
-def _b3_device_times():
-    """Per B3 site, the GEMM's and the quantize pass's device ms and the
-    kernels one call launches, from torch.profiler in a process of its own
-    (``chip_flash_ab.py --int8``'s worker on this tree): a profiler session
-    leaves later sessions in its process short of events, and phase 22
-    counts one call's kernels with the profiler."""
-    res = subprocess.run([sys.executable, os.path.join(ROOT, "chip_flash_ab.py"), "--int8",
+def _gemm_device_times(kind):
+    """Per site of B3 (``kind`` "int8") or B7 ("int4"), the GEMM's and the
+    quantize pass's device ms and the kernels one call launches, from
+    torch.profiler in a process of its own (``chip_flash_ab.py --<kind>``'s
+    worker on this tree): a profiler session leaves later sessions in its
+    process short of events, and phase 22 counts one call's kernels with the
+    profiler."""
+    res = subprocess.run([sys.executable, os.path.join(ROOT, "chip_flash_ab.py"), "--" + kind,
                           "--worker", ROOT], capture_output=True, text=True, cwd=ROOT)
     if res.returncode != 0:
-        raise AssertionError(f"B3 device times: the worker failed:\n{res.stderr[-4000:]}")
+        raise AssertionError(f"{kind} GEMM device times: the worker failed:\n"
+                             f"{res.stderr[-4000:]}")
     return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def _gemm_and_quantize_ms(what, dev, kernel):
+    """The GEMM's and the quantize pass's device ms of one site of
+    :func:`_gemm_device_times`; raises unless one call ran exactly the
+    quantize pass and ``kernel``."""
+    kernels = dev["kernels"]
+    if (len(kernels) != 2 or not any(kernel in k for k in kernels)
+            or not any("quantize_blocks" in k for k in kernels)):
+        raise AssertionError(f"{what}: one call ran {kernels}, not the quantize pass and "
+                             f"{kernel}")
+    return dev["gemm_ms"], dev["quantize_ms"]
 
 
 def phase_quantized_matmul(gen):
     """B3 at the flan-t5-xl sites and Qwen2.5-3B's (M = 32 rows x 640 tokens),
     and a ragged M, on K-major weights; a row-major weight must raise."""
     cases, timed = [], {}
-    device = _b3_device_times()
+    device = _gemm_device_times("int8")
     for site, M, K, N, with_res, bf16_scales in ab.B3_SITES:
         x, w8, sw = ab.int8_operands(gen, M, K, N)
         w8k = quant.to_kmajor(w8)  # the layout of the model's B3 leaves
@@ -592,13 +628,7 @@ def phase_quantized_matmul(gen):
         ms, plain_ms, runs = _in_turns(
             lambda: int8_matmul.quantized_matmul(x, w8k, sw, residual=res),
             lambda: int8_matmul.quantized_matmul_plain(x, w8, sw, res), 3)
-        dev = device[site]
-        gemm, qpass = dev["gemm_ms"], dev["quantize_ms"]
-        kernels = dev["kernels"]
-        if (len(kernels) != 2 or not any(B3_KERNEL in k for k in kernels)
-                or not any("quantize_blocks" in k for k in kernels)):
-            raise AssertionError(f"B3 {site}: one call ran {kernels}, not the quantize "
-                                 f"pass and {B3_KERNEL}")
+        gemm, qpass = _gemm_and_quantize_ms(f"B3 {site}", device[site], B3_KERNEL)
         ops = 2 * M * K * N
         bound = _bound(ops, _nbytes(x, w8, sw, res, got), H100_INT8_OPS)
         wb = (w8.bfloat16() * sw.bfloat16()).contiguous()
@@ -622,7 +652,9 @@ def phase_quantized_matmul(gen):
         f"TOP/s, {gemm / b[0]:.2f}x the bound), quantize pass {qp:.4f} ms; bound {b[0]:.4f} "
         f"ms ({b[1]}); bf16 torch.matmul yardstick {yd:.4f} ms"
         for site, M, K, N, kb, okb, dt, ctl, ms, plain_ms, runs, b, gemm, qp, yd in cases)
-    print(f"[5/{N_PHASES}] B3 W8A8 GEMM ({_b3_build_text()}) vs plain, bf16 x, K-major "
+    b3_build = _gemm_build_text("int8_fusedq", B3_KERNEL,
+                                int8_matmul._lib().quantized_matmul_smem_bytes())
+    print(f"[5/{N_PHASES}] B3 W8A8 GEMM ({b3_build}) vs plain, bf16 x, K-major "
           f"int8 weights (a row-major one raises: {refused!r}); every output equal to the "
           f"plain version's bit for bit and within the gate |diff| <= 2^-7 |want| + 1e-6; "
           f"all-zero rows exactly 0*sw (+ residual); [300, 256]x[256, 384] (3 x 3 tiles) "
@@ -666,6 +698,8 @@ def phase_gated_matmul(gen):
         lambda: int8_matmul.gated_matmul_plain(x, wp, sp, "gelu_new"), 3)
     tops = 2 * M * K * 2 * N / (ms * 1e-3) / 1e12
     bound = _bound(2 * M * K * 2 * N, _nbytes(x, wp, sp, got), H100_INT8_OPS)
+    wb = (wp.bfloat16() * sp.bfloat16()).contiguous()  # wi_g dequantized, [K, 2N]
+    yard = _cuda_ms(lambda: x @ wb, iters=10, warmup=2)
     print(f"[6/{N_PHASES}] B4 gated W8A8 GEMM vs plain, wi_g [{M}, {K}]x[{K}, 2x{N}] "
           f"K-block {int8_matmul.kblock(K, N, x.dtype, gated=True)}, gelu_new: max |diff| "
           f"{err:.4g} (gate 2^-7 |want| + 1e-6 + tanh allowance {allowance:.4g}); relu "
@@ -673,8 +707,10 @@ def phase_gated_matmul(gen):
           f"{ctl['halves swapped']} and with relu for gelu_new "
           f"{ctl['relu for gelu_new']} elements; kernel {ms:.4f} ms ({tops:.1f} TOP/s), "
           f"plain {plain_ms:.4f} ms ({_turns_text(runs)}); bound {bound[0]:.4f} ms "
-          f"({bound[1]}); no one PyTorch call computes it")
-    return _record(err, ms, plain_ms, bound, None)
+          f"({bound[1]}); no one PyTorch call computes it; yardstick for timing only: bf16 "
+          f"torch.matmul over the dequantized wi_g [{K}, {2 * N}] {yard:.4f} ms")
+    return _record(err, ms, plain_ms, bound, None, yardstick_ms=yard,
+                   yardstick="bf16 torch.matmul over the dequantized wi_g")
 
 
 def phase_gated_pair(gen):
@@ -716,16 +752,10 @@ def phase_gated_pair(gen):
                    yardstick="two bf16 torch.matmul on the dequantized weights")
 
 
-def _w4_operands(gen, M, K, N, residual):
-    x, _, _ = ab.int8_operands(gen, M, K, 128)
-    p4, sw = int4_matmul.pack_int4(torch.randn(K, N, generator=gen, device="cuda") * K**-0.5)
-    res = torch.randn(M, N, generator=gen, device="cuda").bfloat16() if residual else None
-    return x, p4.contiguous(), sw.contiguous(), res
-
-
 def _w4_zero_point(x, sw):
-    """The zero-point term the plain version subtracts, as [M, N] f32: a
-    kernel that dropped it would add this to its output."""
+    """The zero-point term the TPU body subtracts, as [M, N] f32: a kernel
+    that folded ``q_lo . (lo4 + 8)`` without it would add this to its
+    output."""
     G = x.shape[1] // sw.shape[0]
     q, scale = int8_matmul.quantize_blocks(x, G)
     zsum = 8 * q[:, :, : G // 2].sum(-1)  # [M, nk]
@@ -733,22 +763,32 @@ def _w4_zero_point(x, sw):
 
 
 def phase_int4(gen):
-    """B7 at Qwen2.5-3B's int4 FFN sites (gate/up G 512, down G 256), and a
-    ragged M with a residual."""
-    cases, rec = [], None
-    for site, M, K, N, with_res in (("gate/up", 32 * 640, 2048, 11008, False),
-                                    ("down", 32 * 640, 11008, 2048, False),
-                                    ("ragged+res", 1000, 2048, 11008, True)):
-        x, p4, sw, res = _w4_operands(gen, M, K, N, with_res)
-        got = int4_matmul.quantized_matmul_int4(x, p4, sw, residual=res)
+    """B7 at Qwen2.5-3B's int4 FFN sites (gate/up G 512, down G 256), a
+    ragged M with a residual and both sites at decode's M 8, on K-major
+    packed weights; a row-major one must raise."""
+    cases, rec, m8 = [], None, {}
+    device = _gemm_device_times("int4")
+    for site, M, K, N, with_res in ab.B7_SITES:
+        x, p4, sw, res = ab.int4_operands(gen, M, K, N, with_res)
+        p4k = quant.to_kmajor(p4)  # the layout of the model's int4 leaves
+        if not cases:
+            try:
+                int4_matmul.quantized_matmul_int4(x, p4, sw, residual=res)
+            except ValueError as exc:
+                refused = str(exc)
+            else:
+                raise AssertionError("B7 took a row-major packed weight")
+        got = int4_matmul.quantized_matmul_int4(x, p4k, sw, residual=res)
         torch.cuda.synchronize()
         want = int4_matmul.quantized_matmul_int4_plain(x, p4, sw, res)
         if not torch.isfinite(got).all() or got.shape != (M, N):
             raise AssertionError(f"B7 {site}: shape {tuple(got.shape)} or not finite")
-        err, bad = _ulp_gate(got, want)
-        if bad:
-            raise AssertionError(f"B7 {site}: {bad} elements over one bf16 ulp, "
-                                 f"max |diff| {err}")
+        zero = torch.zeros(N, device="cuda") if res is None else res[7].float()
+        if not torch.equal(got[7].float(), zero):
+            raise AssertionError(f"B7 {site}: an all-zero row is not 0 (+ residual)")
+        if not torch.equal(got, want):
+            raise AssertionError(f"B7 {site}: {int((got != want).sum())} elements differ "
+                                 f"from the plain version, max |diff| {_ulp_gate(got, want)[0]}")
         swapped = (((p4 & 0x0F) << 4) | ((p4 >> 4) & 0x0F)).to(torch.int8)
         controls = {
             "zero point dropped": (want.float() + _w4_zero_point(x, sw)).bfloat16(),
@@ -763,27 +803,39 @@ def phase_int4(gen):
         if blind:
             raise AssertionError(f"B7 {site}: the gate passes {blind}")
         ms, plain_ms, runs = _in_turns(
-            lambda: int4_matmul.quantized_matmul_int4(x, p4, sw, residual=res),
+            lambda: int4_matmul.quantized_matmul_int4(x, p4k, sw, residual=res),
             lambda: int4_matmul.quantized_matmul_int4_plain(x, p4, sw, res), 3)
-        tops = 2 * M * K * N / (ms * 1e-3) / 1e12
-        bound = _bound(2 * M * K * N, _nbytes(x, p4, sw, res, got), H100_INT8_OPS)
+        gemm, qpass = _gemm_and_quantize_ms(f"B7 {site}", device[site], B7_KERNEL)
+        ops = 2 * M * K * N
+        bound = _bound(ops, _nbytes(x, p4, sw, res, got), H100_INT8_OPS)
         wb = int4_matmul.unpack_int4(p4, sw).bfloat16()
         yard = _cuda_ms(lambda: x @ wb, iters=10, warmup=2)
         G = K // sw.shape[0]
-        cases.append(f"{site} [{M}, {K}]x[{K}, {N}] G {G}: max |diff| {err:.4g}; over the "
-                     f"gate " + ", ".join(f"{n} {v}" for n, v in ctl.items())
-                     + f" elements; kernel {ms:.4f} ms ({tops:.1f} TOP/s), plain "
-                     f"{plain_ms:.4f} ms ({_turns_text(runs)}); bound {bound[0]:.4f} ms "
-                     f"({bound[1]}); bf16 torch.matmul yardstick {yard:.4f} ms")
+        cases.append(f"{site} [{M}, {K}]x[{K}, {N}] G {G}: equal to the plain version; over "
+                     f"the gate " + ", ".join(f"{n} {v}" for n, v in ctl.items())
+                     + f" elements; call {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), plain "
+                     f"{plain_ms:.4f} ms ({_turns_text(runs)}); device: GEMM {gemm:.4f} ms "
+                     f"({ops / gemm / 1e9:.1f} TOP/s, {gemm / bound[0]:.2f}x the bound), "
+                     f"quantize pass {qpass:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}); "
+                     f"bf16 torch.matmul yardstick {yard:.4f} ms")
         if rec is None:
-            rec = _record(err, ms, plain_ms, bound, None, yardstick_ms=yard,
+            rec = _record(0.0, ms, plain_ms, bound, None, gemm_ms=gemm, quantize_ms=qpass,
+                          yardstick_ms=yard,
                           yardstick="bf16 torch.matmul on the dequantized weight")
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        del x, p4, sw, res, got, wb
+        if M == 8:
+            m8[site] = {"ms": ms, "gemm_ms": gemm, "bound_ms": bound[0]}
+        del x, p4, p4k, sw, res, got, wb
         torch.cuda.empty_cache()
-    print(f"[9/{N_PHASES}] B7 W4A8 GEMM vs plain, bf16 x, gate |diff| <= 2^-7 |want| + "
-          f"1e-6 on every element: " + "; ".join(cases) + "; no one PyTorch call "
-          f"computes it (the yardstick is for timing only)")
+    rec["m8"] = m8
+    b7_build = _gemm_build_text("int4_w4a8", B7_KERNEL,
+                                int4_matmul._lib().quantized_matmul_int4_smem_bytes())
+    print(f"[9/{N_PHASES}] B7 W4A8 GEMM ({b7_build}) vs plain, bf16 x, K-major "
+          f"packed int4 weights (a row-major one raises: {refused!r}); every output equal "
+          f"to the plain version's bit for bit, all-zero rows exactly 0 (+ residual), each "
+          f"control over the gate |diff| <= 2^-7 |want| + 1e-6: " + "; ".join(cases)
+          + "; CUDA events over whole calls, device times per kernel from torch.profiler "
+          "in a worker process (chip_flash_ab.py --int4, other operands of the same "
+          "shapes); no one PyTorch call computes it (the yardstick is for timing only)")
     return rec
 
 
@@ -1631,6 +1683,7 @@ def _site_times(model):
         w8, s8 = quantize_weight(w)
         s8 = s8.bfloat16()
         p4, s4 = int4_matmul.pack_int4(w)
+        p4 = quant.to_kmajor(p4)  # the layout of the model's int4 leaves
         out[f"{name} [{K}, {N}]"] = (
             _cuda_ms(lambda: xx @ w, 50, 5),
             _cuda_ms(lambda: quant._matmul(xx, w8.to(s8.dtype) * s8), 50, 5),

@@ -355,7 +355,7 @@ int launch(const __nv_bfloat16* x, const GemmParams& p, int8_t* x8, float* sx,
   if (p.M <= 0 || p.K % 128 || p.kb % kBK || p.kb <= 0 || p.K % p.kb) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t err = launch_quantize(x, x8, sx, nullptr, p.M, p.K, p.kb, stream);
+  const cudaError_t err = launch_quantize(x, x8, sx, p.M, p.K, p.kb, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return launch_gemm(p, gated, stream);
 }
@@ -592,7 +592,7 @@ int launch_wgmma(const __nv_bfloat16* x, const int8_t* wt, const WgParams& p, in
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < 64) raised[dev] = true;
   }
-  err = launch_quantize(x, x8, const_cast<float*>(p.sx), nullptr, p.M, K, kb, stream);
+  err = launch_quantize(x, x8, const_cast<float*>(p.sx), p.M, K, kb, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(p.N / kWgCols, (p.M + kWgRows - 1) / kWgRows);  // N tiles fastest
   int8_gemm_wgmma_kernel<<<grid, kWgThreads, kWgSmem, stream>>>(ta, tb, to, p);

@@ -1,7 +1,7 @@
-// Pieces shared by the int8 tensor-core GEMMs (int8_fusedq.cu, int4_w4a8.cu):
-// the per-row, per-K-block activation quantize pass, the m16n8k32 s8 mma,
-// ldmatrix, and the byte transpose that stages an N-contiguous int8 weight
-// tile K-major for mma.sync.
+// Pieces of the int8 tensor-core GEMMs: the per-row, per-K-block activation
+// quantize pass (every int8 and int4 GEMM), and for the mma.sync bodies of
+// int8_fusedq.cu the m16n8k32 s8 mma, ldmatrix, and the byte transpose that
+// stages an N-contiguous int8 weight tile K-major.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,14 +16,11 @@ constexpr float kInv127 = (float)(1.0 / 127.0);
 
 // Per-row, per-K-block quantization, with the TPU body's arithmetic:
 // scale = max(amax, 1e-8) * f32(1/127), q = clip(rint(x * rcp_rn(scale)),
-// -127, 127). Writes q to x8 [M, K], the scale to sx [M, K/kb] and, when z
-// is not null, 8 * (sum of q over the first half of the block) to z [M, K/kb]
-// (the W4A8 kernel's zero-point term; kb/2 is a multiple of 8, so no
-// eight-element chunk straddles the half).
+// -127, 127). Writes q to x8 [M, K] and the scale to sx [M, K/kb].
 __global__ void __launch_bounds__(kQuantThreads)
     quantize_blocks_kernel(const __nv_bfloat16* __restrict__ x,
-                           int8_t* __restrict__ x8, float* __restrict__ sx,
-                           int* __restrict__ z, int M, int K, int kb) {
+                           int8_t* __restrict__ x8, float* __restrict__ sx, int M, int K,
+                           int kb) {
   const int nk = K / kb;
   const long long task =
       (long long)blockIdx.x * (kQuantThreads / 32) + threadIdx.x / 32;
@@ -47,7 +44,6 @@ __global__ void __launch_bounds__(kQuantThreads)
   }
   const float scale = __fmul_rn(fmaxf(amax, kAmaxFloor), kInv127);
   const float inv = __frcp_rn(scale);
-  int zsum = 0;
   for (int c = lane * 8; c < kb; c += 32 * 8) {
     const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
     const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
@@ -56,28 +52,20 @@ __global__ void __launch_bounds__(kQuantThreads)
     for (int i = 0; i < 8; ++i) {
       int q = __float2int_rn(__fmul_rn(__bfloat162float(e[i]), inv));
       q = min(127, max(-127, q));
-      if (c < kb / 2) zsum += q;
       packed[i / 4] |= (uint32_t)(q & 0xff) << (8 * (i % 4));
     }
     *reinterpret_cast<uint2*>(qr + c) = make_uint2(packed[0], packed[1]);
   }
-  if (z != nullptr) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) zsum += __shfl_xor_sync(0xffffffffu, zsum, o);
-  }
-  if (lane == 0) {
-    sx[row * nk + b] = scale;
-    if (z != nullptr) z[row * nk + b] = 8 * zsum;
-  }
+  if (lane == 0) sx[row * nk + b] = scale;
 }
 
 // The quantize pass over [M, K] in K-blocks of kb; returns cudaGetLastError().
-inline cudaError_t launch_quantize(const __nv_bfloat16* x, int8_t* x8, float* sx, int* z,
-                                   int M, int K, int kb, cudaStream_t stream) {
+inline cudaError_t launch_quantize(const __nv_bfloat16* x, int8_t* x8, float* sx, int M,
+                                   int K, int kb, cudaStream_t stream) {
   const long long tasks = (long long)M * (K / kb);
   const int warps = kQuantThreads / 32;
   quantize_blocks_kernel<<<(unsigned)((tasks + warps - 1) / warps), kQuantThreads, 0,
-                           stream>>>(x, x8, sx, z, M, K, kb);
+                           stream>>>(x, x8, sx, M, K, kb);
   return cudaGetLastError();
 }
 

@@ -1,10 +1,11 @@
-// Pieces of the int8 wgmma GEMM (int8_fusedq.cu, B3): the mbarrier ring,
-// 2-D TMA loads and stores, shared-memory descriptors and the
+// Pieces of the int8 wgmma GEMMs (int8_fusedq.cu, B3; int4_w4a8.cu, B7): the
+// mbarrier ring, 2-D TMA loads and stores, shared-memory descriptors and the
 // wgmma.mma_async m64nNk32.s32.s8.s8 wrapper, as wgmma_bf16.cuh holds the
 // bf16 forms for flash_blhd.cu. int8 wgmma reads both operands from shared
 // memory K-major only (the transpose flags exist for 16-bit types alone), so
-// A is the activations [M, K] and B the weight's [N, K] buffer, both in
-// rows of 128 bytes under the 128-byte swizzle that TMA writes.
+// A is the activations [M, K] and B the weight's [N, K] buffer: B3's in rows
+// of 128 bytes under the 128-byte swizzle that TMA writes, B7's (packed
+// bytes expanded to s8) in rows of 64 bytes under the 64-byte swizzle.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap
@@ -94,6 +95,14 @@ __device__ __forceinline__ void named_barrier(int id, int count) {
 __device__ __forceinline__ uint64_t desc_k128(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// The same for 64-byte rows under the 64-byte swizzle: eight rows (512
+// bytes) per core-matrix group; the start address moves 32 bytes per k32
+// step inside the row. Tiles are 1024-aligned (base offset 0).
+__device__ __forceinline__ uint64_t desc_k64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (static_cast<uint64_t>(2) << 62);
 }
 
 __device__ __forceinline__ void fence() {

@@ -9,15 +9,18 @@ int4 in [-7, 7] per (group of G input rows, output column), G the largest of
 row r holds ``(hi4 << 4) | (lo4 + 8)``: lo4 is the weight of input row
 ``gG + r`` and hi4 that of ``gG + G/2 + r``. Activations are quantized to
 int8 per row and per group (the W8A8 kernels' quantization with a K-block of
-G); each group's sum is two int32 dots, ``q_lo . (p & 0x0F)`` less the
-zero-point ``8 * sum(q_lo)`` and ``q_hi . (p & 0xF0) / 16``, folded into an
-f32 accumulator as ``(d * sx) * sw[g]``.
+G); each group's sum ``D = q_lo . lo4 + q_hi . hi4`` is an exact integer,
+folded into an f32 accumulator as ``(D * sx) * sw[g]``.
 
-On a CUDA tensor :func:`quantized_matmul_int4` launches the hand-written
-kernel of ``csrc/int4_w4a8.cu`` (bf16 x, ``sm_90a``) or raises; on a CPU
-tensor it runs :func:`quantized_matmul_int4_plain`, which computes the same
-numbers step by step (the same int8 values, exact integer sums in float64,
-the same f32 fold order).
+The kernel takes the packed leaf K-major (``int8_matmul.check_kmajor``): an
+``[N, K/2]`` buffer seen through its transpose, shape ``[K/2, N]`` with
+stride ``(1, K/2)``, the same bytes as JAX's leaf (``models/quant.py`` lays
+the decoder's int4 leaves out so). On a CUDA tensor
+:func:`quantized_matmul_int4` launches the hand-written kernel of
+``csrc/int4_w4a8.cu`` (bf16 x, ``sm_90a``) or raises; on a CPU tensor it runs
+:func:`quantized_matmul_int4_plain`, which computes the same numbers step by
+step (the same int8 values, exact integer sums in float64, the same f32 fold
+order) from either layout.
 """
 from __future__ import annotations
 
@@ -27,7 +30,11 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .int8_matmul import _check, _check_x, _out_dtype, quantize_blocks
+from .int8_matmul import _check, _check_x, _out_dtype, check_kmajor, quantize_blocks
+
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# The C entry of csrc/int4_w4a8.cu: pointers, then ints, then the stream.
+ENTRY = [_PTR] * 7 + [_I32] * 4 + [_PTR]
 
 GROUP_CANDIDATES = (512, 256, 128)
 
@@ -118,9 +125,8 @@ def quantized_matmul_int4_plain(
 def _lib() -> ctypes.CDLL:
     lib = _build.load("int4_w4a8")
     if lib.quantized_matmul_int4_bf16.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.quantized_matmul_int4_bf16.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
-        lib.quantized_matmul_int4_bf16.restype = i32
+        lib.quantized_matmul_int4_bf16.argtypes = ENTRY
+        lib.quantized_matmul_int4_bf16.restype = _I32
     return lib
 
 
@@ -133,10 +139,11 @@ def quantized_matmul_int4(
     """W4A8 ``x @ unpack(p4, sw) (+ residual)`` over any leading dims.
 
     CPU tensors take :func:`quantized_matmul_int4_plain`. CUDA tensors launch
-    the quantize pass and the GEMM of ``csrc/int4_w4a8.cu`` on the current
-    stream and add one to ``quantized_matmul_int4.launches``; what the kernel
-    does not take raises: x other than contiguous bf16, a group other than
-    128, 256 or 512, N not a multiple of 128, tensors off x's device,
+    the quantize pass and the wgmma GEMM of ``csrc/int4_w4a8.cu`` on the
+    current stream and add one to ``quantized_matmul_int4.launches``; what
+    the kernel does not take raises: x other than contiguous bf16, a group
+    other than 128, 256 or 512, N not a multiple of 128, a packed leaf that
+    is not K-major (``int8_matmul.check_kmajor``), tensors off x's device,
     unaligned base pointers. Ragged M is masked inside the kernel."""
     if x.device.type == "cpu":
         return quantized_matmul_int4_plain(x, p4, sw, residual)
@@ -151,23 +158,26 @@ def quantized_matmul_int4(
             raise ValueError("residual: the kernel takes a contiguous tensor")
         res2 = residual.reshape(M, N)
         _check("residual", res2, torch.bfloat16, (M, N), x.device)
-    _check("p4", p4, torch.int8, (Kh, N), x.device)
+    if p4.device != x.device:
+        raise ValueError(f"p4: the kernel takes a tensor on {x.device}, got {p4.device}")
+    check_kmajor("p4", p4, Kh, N)
     _check("sw", sw, torch.float32, (K // G, N), x.device)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out.reshape(*lead, N)
     x8 = torch.empty((M, K), dtype=torch.int8, device=x.device)
     sx = torch.empty((M, K // G), dtype=torch.float32, device=x.device)
-    z = torch.empty((M, K // G), dtype=torch.int32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.quantized_matmul_int4_bf16(
             x2.data_ptr(), p4.data_ptr(), sw.data_ptr(),
             None if res2 is None else res2.data_ptr(), x8.data_ptr(), sx.data_ptr(),
-            z.data_ptr(), out.data_ptr(), M, K, N, G, stream)
+            out.data_ptr(), M, K, N, G, stream)
     if rc != 0:
-        raise RuntimeError(f"int4_w4a8 quantized_matmul_int4 launch failed: CUDA error {rc}")
+        raise RuntimeError(f"int4_w4a8 quantized_matmul_int4 launch failed: error {rc} "
+                           f"(> 0 CUDA runtime, < 0 -CUresult of a tensor map, -1000 no "
+                           f"tensor-map encoder)")
     quantized_matmul_int4.launches += 1
     return out.reshape(*lead, N)
 

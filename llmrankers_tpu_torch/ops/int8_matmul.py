@@ -249,14 +249,15 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> Non
 
 def check_kmajor(name: str, w: torch.Tensor, K: int, N: int) -> None:
     """Raise unless ``w`` is the K-major int8 ``[K, N]`` weight B3's kernel
-    loads by TMA: an ``[N, K]`` buffer seen through its transpose (stride
-    ``(1, K)``, ``models/quant.py::to_kmajor``) with a 16-byte-aligned base.
-    A row-major weight is refused, not copied."""
+    loads by TMA (or B7's packed int4 leaf, with ``K/2`` rows): an ``[N, K]``
+    buffer seen through its transpose (stride ``(1, K)``,
+    ``models/quant.py::to_kmajor``) with a 16-byte-aligned base. A row-major
+    weight is refused, not copied."""
     if w.dtype != torch.int8 or tuple(w.shape) != (K, N):
         raise ValueError(f"{name}: the kernel takes an int8 [{K}, {N}] weight, got "
                          f"{w.dtype} {list(w.shape)}")
     if w.stride() != (1, K):
-        raise ValueError(f"{name}: the W8A8 kernel takes the weight K-major, an [N, K] "
+        raise ValueError(f"{name}: the kernel takes the weight K-major, an [N, K] "
                          f"buffer seen as [K, N] with stride (1, {K}); got stride "
                          f"{tuple(w.stride())}"
                          + (" (row-major)" if w.is_contiguous() else ""))

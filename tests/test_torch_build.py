@@ -112,12 +112,60 @@ def test_int8_wrapper_argtypes_match_the_c_entries(entry):
 
 def test_int4_source_has_its_entry_point():
     """B7 is its own hand-written source on the same int8 tensor-core tiles:
-    the quantize pass with the zero-point sums, then the two nibble planes."""
+    the quantize pass, then the two nibble planes as 16 * lo4 and 16 * hi4
+    and the exact 1/16 in the fold."""
     src = _source("int4_w4a8.cu")
     assert 'extern "C" int quantized_matmul_int4_bf16(' in src
     assert '#include "int8_mma.cuh"' in src
-    assert "0x0F0F0F0Fu" in src and "0xF0F0F0F0u" in src and "0.0625f" in src
+    assert "0xF0F0F0F0u" in src and "0x80808080u" in src and "0.0625f" in src
     assert "cublas" not in src.lower() and "_int_mm" not in src
+
+
+def test_b7_runs_on_a_wgmma_kernel_fed_by_tma():
+    """B7's entry launches the quantize pass and one int8 wgmma kernel: s8
+    m64n128k32 products from shared-memory descriptors under the 64-byte
+    swizzle, the packed weight, both x8 planes and the group scales by 2-D
+    TMA through an mbarrier ring of at least four stages, the nibbles
+    expanded in shared memory and handed to wgmma through the async-proxy
+    fence, one int32 sum per group folded in round-to-nearest steps, the
+    output tile stored by TMA; the role branch on a warp index broadcast from
+    lane 0 (a divergent path makes ptxas serialise the wgmmas); no mma.sync,
+    no ldmatrix, no transposed staging."""
+    src = _source("int4_w4a8.cu")
+    for inc in ('#include "int8_wgmma.cuh"', '#include "tma_encode.cuh"'):
+        assert inc in src
+    assert "CU_TENSOR_MAP_SWIZZLE_64B" in src and "CU_TENSOR_MAP_DATA_TYPE_UINT8" in src
+    stages = int(src.split("constexpr int kStages = ")[1].split(";")[0])
+    assert stages >= 4
+    body = src.split("w4a8_gemm_wgmma_kernel(")[1].split("CUresult encode_2d(")[0]
+    for call in ("s8wg::mma_n128(", "s8wg::tma_2d(", "s8wg::tma_store_2d(",
+                 "s8wg::mbar_wait(", "s8wg::fence_async_smem()", "s8wg::wait<1>()"):
+        assert call in body, call
+    assert body.count("s8wg::tma_2d(") == 4  # packed, x8 lo, x8 hi, sw
+    assert "for (int kk = 0; kk < 4; ++kk)" in body and "step > 0 || kk > 0" in body
+    assert "__shfl_sync(0xffffffffu, tid / 32, 0)" in body
+    assert ("accf[q] = __fadd_rn(accf[q], __fmul_rn(__fmul_rn(d, sc[h]), e ? sw.y : sw.x))"
+            in body)
+    assert "__fmul_rn(__int2float_rn(acc[q]), 0.0625f)" in body
+    for gone in ("mma_s8(", "ldmatrix", "store_b_transposed", "p.z", "acc[2]"):
+        assert gone not in src, gone
+    assert "int* z" not in _source("int8_mma.cuh")  # no zero-point sums
+    desc = _source("int8_wgmma.cuh").split("uint64_t desc_k64(")[1].split("\n}\n")[0]
+    assert "512 >> 4" in desc and "(2) << 62" in desc  # 8 rows of 64 B; 64-byte swizzle
+
+
+def test_int4_wrapper_argtypes_match_the_c_entry():
+    """The ctypes argument list of B7's entry (pointers, ints, stream)
+    matches its ``extern "C"`` signature, type for type."""
+    from llmrankers_tpu_torch.ops import int4_matmul
+
+    src = _source("int4_w4a8.cu")
+    sig = src.split('extern "C" int quantized_matmul_int4_bf16(')[1].split(")")[0]
+    params = [" ".join(p.split()) for p in sig.split(",")]
+    want = [int4_matmul.ctypes.c_void_p if "*" in p else int4_matmul.ctypes.c_int
+            for p in params]
+    assert all("*" in p or p.startswith("int ") for p in params), params
+    assert int4_matmul.ENTRY == want
 
 
 def test_build_key_follows_the_shared_header(tmp_path, monkeypatch):

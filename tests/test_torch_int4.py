@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 from llmrankers_tpu.ops import int4_matmul as jint4
 from llmrankers_tpu.ops import int8_matmul as jint8
+from llmrankers_tpu_torch.models import quant as tquant
 from llmrankers_tpu_torch.ops import int4_matmul as tint4
 from llmrankers_tpu_torch.ops import int8_matmul as tint8
 
@@ -136,6 +137,11 @@ def test_quantized_matmul_int4_plain_matches_jax(G, residual, dtype):
     assert got.dtype == dtype and got.shape == (200, 384)
     _assert_close(got, want, dtype)
     assert torch.equal(got[3].float(), torch.zeros(384) if rt is None else rt[3].float())
+    # the K-major view the models hold (B7's layout) gives the same bits
+    p4k = tquant.to_kmajor(torch.from_numpy(p4))
+    assert p4k.stride() == (1, p4.shape[0])
+    got_k = tint4.quantized_matmul_int4_plain(xt, p4k, torch.from_numpy(sw), rt)
+    assert torch.equal(got_k, got)
 
 
 def test_int4_controls_miss_the_tolerance():
@@ -170,6 +176,89 @@ def test_quantized_matmul_int4_wrapper_on_cpu():
     assert tint4.quantized_matmul_int4.launches == n
     with pytest.raises(ValueError, match="no kernel"):
         tint4.quantized_matmul_int4(xt.to("meta"), p4.to("meta"), sw.to("meta"))
+
+
+def _kernel_fold(x, p4k, sw):
+    """The W4A8 kernel's arithmetic (``csrc/int4_w4a8.cu``) from the K-major
+    packed buffer viewed as 32-bit words: the two masks on words (so the
+    shift that carries a nibble into the next byte is pinned), one exact sum
+    per group over both planes, ``float(acc) * 0.0625``, the f32 fold."""
+    K = x.shape[1]
+    Kh, N = p4k.shape
+    nk = sw.shape[0]
+    G = K // nk
+    half = G // 2
+    q, scale = tint8.quantize_blocks(x, G)
+    words = p4k.t().contiguous().view(torch.int32).long() & 0xFFFFFFFF  # [N, Kh/4]
+    planes = []
+    for v in (((words << 4) & 0xF0F0F0F0) ^ 0x80808080, words & 0xF0F0F0F0):  # lo16, hi16
+        b = torch.stack([(v >> (8 * k)) & 0xFF for k in range(4)], -1).reshape(N, Kh)
+        planes.append((b - 256 * (b >= 128)).double())  # signed bytes, in memory order
+    lo16, hi16 = planes
+    acc_f = None
+    for g in range(nk):
+        cols = slice(g * half, (g + 1) * half)
+        acc = (q[:, g, :half].double() @ lo16[:, cols].t()
+               + q[:, g, half:].double() @ hi16[:, cols].t())
+        assert acc.abs().max() < 2**24
+        assert torch.equal(acc, acc.round())
+        d = acc.float() * 0.0625
+        term = (d * scale[:, g:g + 1]) * sw[g]
+        acc_f = term if acc_f is None else acc_f + term
+    return acc_f
+
+
+@pytest.mark.parametrize("case", ["random", "extreme"])
+@pytest.mark.parametrize("G", [512, 256, 128])
+def test_kernel_fold_is_the_plain_fold(G, case):
+    """The kernel's one-accumulator fold gives the plain version's f32 bits:
+    16 D is exact in int32 and below 2^24, so float(acc) * 0.0625 is D, and
+    the TPU body's d (two dots less a zero point) is D too. The extreme case
+    quantizes every x of row 0 to +127 and every weight of column 0 to +7
+    (|acc| = 16 G 127 7, the largest a group can hold), the rest to random
+    signs of the same magnitudes."""
+    rng = np.random.RandomState(G)
+    K, M, N = {512: 1024, 256: 768, 128: 384}[G], 48, 256
+    if case == "random":
+        x = _activations(rng, M, K)
+        w = rng.randn(K, N).astype(np.float32) * K**-0.5
+    else:
+        x = np.where(rng.rand(M, K) < 0.5, -1.0, 1.0).astype(np.float32)
+        w = np.where(rng.rand(K, N) < 0.5, -1.0, 1.0).astype(np.float32)
+        x[0], w[:, 0] = 1.0, 1.0
+    p4, sw = tint4.pack_int4(torch.from_numpy(w))
+    p4k = tquant.to_kmajor(p4)
+    xt = torch.from_numpy(x).float()
+    if case == "extreme":
+        q, _ = tint8.quantize_blocks(xt, G)
+        assert q.abs().min() == 127
+        assert tint4.unpack_int4(p4, torch.ones_like(sw)).abs().min() == 7
+    got = _kernel_fold(xt, p4k, sw)
+    want = tint4.quantized_matmul_int4_plain(xt, p4k, sw)
+    assert want.dtype == torch.float32 and torch.equal(got, want)
+    if case == "extreme":
+        d0 = got[0, 0] / (sw[:, 0] * (1 / 127.0)).sum()
+        assert abs(d0.item() - G * 127 * 7) < 1e-3 * G * 127 * 7
+
+
+def test_check_kmajor_refuses_a_row_major_leaf():
+    """The B7 wrapper's layout check (``check_kmajor`` over the packed
+    ``[K/2, N]`` leaf), on CPU tensors: it takes the K-major packed view and
+    refuses a row-major leaf (naming the layout), another shape or dtype, and
+    an unaligned base, making no copy."""
+    K, N = 512, 384
+    p4, _ = tint4.pack_int4(torch.randn(K, N))
+    p4k = tquant.to_kmajor(p4)
+    tint4.check_kmajor("p4", p4k, K // 2, N)
+    with pytest.raises(ValueError, match=r"K-major.*stride \(1, 256\).*row-major"):
+        tint4.check_kmajor("p4", p4, K // 2, N)
+    with pytest.raises(ValueError, match="int8"):
+        tint4.check_kmajor("p4", p4k.float(), K // 2, N)
+    with pytest.raises(ValueError, match=r"\[256, 256\]"):
+        tint4.check_kmajor("p4", p4k, K // 2, 256)
+    buf = torch.zeros(N * K // 2 + 1, dtype=torch.int8)[1:]  # base one byte off
+    with pytest.raises(ValueError, match="16-byte"):
+        tint4.check_kmajor("p4", buf.view(N, K // 2).t(), K // 2, N)
 
 
 # ---------------------------------------------------------------------------

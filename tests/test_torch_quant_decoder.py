@@ -150,8 +150,9 @@ def test_quantize_decoder_params_matches_jax(mode, tied):
 def test_b3_leaves_are_kmajor(mode, source):
     """The int8 sites that the W8A8 GEMM (B3) reads (wq, wk, wv, wo, w_down)
     are held K-major (shape [K, N], stride (1, K)), bit for bit the JAX
-    leaves, from the quantizer and from the JAX tree; the gated pair's w_gate
-    and w_up, the int4 leaves and the int8 head stay contiguous."""
+    leaves, from the quantizer and from the JAX tree; the packed int4 leaves
+    are K-major too (stride (1, K/2), B7's layout); the gated pair's w_gate
+    and w_up and the int8 head stay contiguous."""
     jcfg, tcfg = _cfgs(tied=mode == "int8")
     if mode == "int4_attn":  # int4 FFN, int8 attention, as at Qwen2.5-3B's widths
         jfn = functools.partial(jquant.quantize_decoder_params_int4,
@@ -174,8 +175,8 @@ def test_b3_leaves_are_kmajor(mode, source):
     for key, leaf in want["layers"].items():
         for i, lp in enumerate(got.layers):
             p = lp[key]
-            if key in names:
-                K, N = leaf.shape[1:]
+            if key in names or key + tquant.SCALE4_SUFFIX in lp0:
+                K, N = leaf.shape[1:]  # packed int4: K/2 rows
                 assert p.stride() == (1, K) and p.shape == (K, N), (key, p.stride())
             else:
                 assert p.is_contiguous(), key
@@ -183,6 +184,45 @@ def test_b3_leaves_are_kmajor(mode, source):
     for head in ("embed", "lm_head"):
         if getattr(got, head, None) is not None:
             assert getattr(got, head).is_contiguous(), head
+
+
+@pytest.mark.parametrize("source", ["quantizer", "params_from_jax"])
+@pytest.mark.parametrize("mode", ["int4_all", "int4_attn"])
+def test_int4_leaves_are_kmajor(mode, source):
+    """Every packed int4 leaf (the W4A8 GEMM B7's weight) is held K-major: an
+    [N, K/2] buffer seen as [K/2, N], stride (1, K/2), bit for bit the JAX
+    leaf, from the quantizer and from the JAX tree; its group scales stay
+    contiguous. The kernel's check takes it and refuses its row-major copy."""
+    from llmrankers_tpu_torch.ops import int4_matmul as tint4
+
+    jcfg, tcfg = _cfgs()
+    if mode == "int4_attn":  # int4 FFN only
+        jfn = functools.partial(jquant.quantize_decoder_params_int4,
+                                min_site_params=128 * 256)
+        tfn = functools.partial(tquant.quantize_decoder_params_int4,
+                                min_site_params=128 * 256)
+    else:
+        jfn, tfn = MODES[mode]
+    tree = _tree(jcfg)
+    want = jax.tree.map(np.asarray, jfn(jax.tree.map(jnp.asarray, tree)))
+    if source == "quantizer":
+        got = tfn(tdec.params_from_jax(tree, tcfg, device="cpu"))
+    else:
+        got = tdec.params_from_jax(want, tcfg, device="cpu")
+    int4 = {k for k in tquant.QUANT_TARGETS if k + tquant.SCALE4_SUFFIX in got.layers[0]}
+    assert int4 == {"int4_all": set(tquant.QUANT_TARGETS),
+                    "int4_attn": {"w_gate", "w_up", "w_down"}}[mode]
+    for key in int4:
+        for i, lp in enumerate(got.layers):
+            p4, s4 = lp[key], lp[key + tquant.SCALE4_SUFFIX]
+            Kh, N = np.asarray(want["layers"][key]).shape[1:]
+            assert p4.shape == (Kh, N) and p4.stride() == (1, Kh), (key, p4.stride())
+            assert s4.is_contiguous(), key
+            _assert_leaf(p4, np.asarray(want["layers"][key])[i], f"{key}[{i}]")
+            _assert_leaf(s4, np.asarray(want["layers"][key + tquant.SCALE4_SUFFIX])[i], key)
+            tint4.check_kmajor("p4", p4, Kh, N)
+            with pytest.raises(ValueError, match="row-major"):
+                tint4.check_kmajor("p4", p4.contiguous(), Kh, N)
 
 
 def test_int4_cut_off_at_qwen_widths():
