@@ -41,17 +41,20 @@ the wrapper's host time per call; this tree's worker also times SDPA on the
 dequantized cache the same way and checks the kernel against its plain
 version. B8's bound (:func:`kvq_work`) counts only the keys the mask leaves.
 
-With ``--int8`` it times the W8A8 GEMM B3
-(``ops/int8_matmul.py::quantized_matmul``) instead, at ``chip_smoke.py``
-phase 5's sites (:data:`B3_SITES`): per site the whole call (quantize pass
-and GEMM) from CUDA events, the two kernels' device times from
-torch.profiler, and a sha256 of the output, which must be the same for both
-trees and every run (each tree gets the weight in the layout its wrapper
-takes: K-major where it has ``int8_matmul.check_kmajor``, else row-major);
-this tree's worker also checks the output against the plain version and
-times bf16 ``torch.matmul`` on the same shape as a yardstick. B3's bound is
+With ``--int8`` it times the W8A8 GEMMs instead: B3
+(``ops/int8_matmul.py::quantized_matmul``) at ``chip_smoke.py`` phase 5's
+sites (:data:`B3_SITES`), and the gated B4 (``gated_matmul``) and B6
+(``gated_matmul_pair``) at phases 6's and 8's (:data:`GATED_SITES`): per
+site the whole call (quantize pass and GEMM) from CUDA events, the two
+kernels' device times from torch.profiler, and a sha256 of the output, which
+must be the same for both trees and every run (each tree gets the weights in
+the layout its wrappers take: B3's K-major where it has
+``int8_matmul.check_kmajor``, the gated ones K-major unless its
+``models/quant.py`` still has ``GATED_LEAVES``, else row-major); this tree's
+worker also checks the output against the plain version and times bf16
+``torch.matmul`` over the dequantized weights as a yardstick. The bound is
 the larger of the int8 operations at 1,979 TOP/s and the bytes of x, the
-weight, the scales, the residual and the output at 3.35 TB/s.
+weights, the scales, the residual and the output at 3.35 TB/s.
 
 With ``--int4`` it times the W4A8 GEMM B7
 (``ops/int4_matmul.py::quantized_matmul_int4``) the same way, at
@@ -96,6 +99,15 @@ B3_SITES = (("qkv", B3_M, 2048, 6144, False, False), ("wo", B3_M, 5120, 2048, Fa
             ("Qwen w_down", B3_M, 11008, 2048, False, True))
 H100_INT8_OPS = 1979e12
 
+# B4's and B6's sites, (name, M, K, N, act, pair): flan-t5-xl's packed wi_g
+# [K, 2N] and Qwen2.5-3B's w_gate and w_up (bf16 column scales), each also at
+# a ragged M whose last row tile is mostly past M. chip_smoke.py phases 6
+# and 8 check them at the same sites.
+GATED_SITES = (("B4 wi_g", B3_M, 2048, 5120, "gelu_new", False),
+               ("B4 ragged", 1100, 2048, 5120, "gelu_new", False),
+               ("B6 gate/up", B3_M, 2048, 11008, "silu", True),
+               ("B6 ragged", 1100, 2048, 11008, "silu", True))
+
 # B7's sites, (name, M, K, N, residual): Qwen2.5-3B's int4 FFN at M = B*L
 # (gate/up at G 512, down at G 256), a ragged M with a residual, and both
 # sites at decode's M 8 (batch 8, one token). chip_smoke.py phase 9 checks
@@ -119,6 +131,21 @@ def int8_operands(gen, M, K, N):
     x[7] = 0.0
     w8, sw = quantize_weight(torch.randn(K, N, generator=gen, device=dev) * K**-0.5)
     return x.bfloat16(), w8.contiguous(), sw.contiguous()
+
+
+def gated_operands(gen, M, K, N, pair):
+    """The activations of :func:`int8_operands` and the gated weights, row-major:
+    ``(x, (wp [K, 2N], sp [1, 2N] f32))`` for B4, or ``(x, (w0, s0, w1, s1))``
+    with two [K, N] weights and bf16 scales (the decoder's leaves) for B6."""
+    import torch
+    from llmrankers_tpu_torch.models.quant import quantize_weight
+
+    if not pair:
+        x, wp, sp = int8_operands(gen, M, K, 2 * N)
+        return x, (wp, sp)
+    x, w0, s0 = int8_operands(gen, M, K, N)
+    w1, s1 = quantize_weight(torch.randn(K, N, generator=gen, device="cuda") * K**-0.5)
+    return x, (w0, s0.bfloat16(), w1.contiguous(), s1.bfloat16())
 
 
 def int4_operands(gen, M, K, N, residual):
@@ -320,10 +347,10 @@ def _kvq_worker(root: str, check: bool) -> dict:
     return cases
 
 
-def _gemm_record(call, ops, tensors, gemm_key) -> dict:
+def _gemm_record(call, ops, tensors, gemm_keys) -> dict:
     """One GEMM site of ``--int8``/``--int4``: the whole call's ms from CUDA
-    events (mean of 20 after 3), the GEMM's (kernels named with
-    ``gemm_key``) and the quantize pass's device ms from torch.profiler, the
+    events (mean of 20 after 3), the GEMM's (kernels named with one of
+    ``gemm_keys``) and the quantize pass's device ms from torch.profiler, the
     kernels one call launches, the bound, and the output's sha256."""
     import hashlib
 
@@ -342,7 +369,7 @@ def _gemm_record(call, ops, tensors, gemm_key) -> dict:
     nbytes = sum(t.numel() * t.element_size() for t in (*tensors, got) if t is not None)
     return got, {
         "ms": start.elapsed_time(end) / 20, "ops": ops,
-        "gemm_ms": sum(v for k, v in dev.items() if gemm_key in k),
+        "gemm_ms": sum(v for k, v in dev.items() if any(g in k for g in gemm_keys)),
         "quantize_ms": sum(v for k, v in dev.items() if "quantize_blocks" in k),
         "kernels": sorted(dev),
         "bound_ms": max(ops / H100_INT8_OPS, nbytes / H100_BYTES_PER_S) * 1e3,
@@ -351,32 +378,42 @@ def _gemm_record(call, ops, tensors, gemm_key) -> dict:
         "sha256": hashlib.sha256(got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()}
 
 
-def _yardstick_ms(x, wb) -> float:
-    """bf16 ``torch.matmul`` of x by the dequantized weight: mean of 10."""
+def _yardstick_ms(x, *wbs) -> float:
+    """bf16 ``torch.matmul`` of x by each dequantized weight: mean of 10."""
     import torch
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def run():
+        for wb in wbs:
+            x @ wb
+
     for _ in range(2):
-        x @ wb
+        run()
     start.record()
     for _ in range(10):
-        x @ wb
+        run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / 10
 
 
 def _int8_worker(root: str, check: bool) -> dict:
-    """B3 at the phase-5 sites (module docstring): per site the whole call's
-    ms from CUDA events, the GEMM's and the quantize pass's device ms from
-    torch.profiler, and a sha256 of the output. A tree whose wrapper checks
-    for K-major weights (``int8_matmul.check_kmajor``) gets them K-major, the
-    same values; an older tree gets them row-major."""
+    """B3 at the phase-5 sites and B4, B6 at :data:`GATED_SITES` (module
+    docstring): per site the whole call's ms from CUDA events, the GEMM's and
+    the quantize pass's device ms from torch.profiler, and a sha256 of the
+    output. A tree whose wrapper checks for K-major weights
+    (``int8_matmul.check_kmajor``) gets B3's K-major, the same values, and
+    one whose ``models/quant.py`` has no ``GATED_LEAVES`` (the gated leaves'
+    row-major exception) gets the gated weights K-major too; an older tree
+    gets them row-major."""
     sys.path.insert(0, root)
     import torch
+    from llmrankers_tpu_torch.models import quant
     from llmrankers_tpu_torch.ops import int8_matmul
 
     int8_matmul._lib()  # build before timing
     kmajor = hasattr(int8_matmul, "check_kmajor")
+    gated_kmajor = kmajor and not hasattr(quant, "GATED_LEAVES")
     gen = torch.Generator(device="cuda").manual_seed(5)
     cases = {}
     for site, M, K, N, with_res, bf16_scales in B3_SITES:
@@ -386,7 +423,7 @@ def _int8_worker(root: str, check: bool) -> dict:
         res = torch.randn(M, N, generator=gen, device="cuda").bfloat16() if with_res else None
         wk = w8.t().contiguous().t() if kmajor else w8
         got, rec = _gemm_record(lambda: int8_matmul.quantized_matmul(x, wk, sw, residual=res),
-                                2 * M * K * N, (x, w8, sw, res), "int8_gemm")
+                                2 * M * K * N, (x, w8, sw, res), ("int8_gemm",))
         if check:
             want = int8_matmul.quantized_matmul_plain(x, w8, sw, res)
             rec["equal_to_plain"] = bool(torch.equal(got, want))
@@ -394,6 +431,25 @@ def _int8_worker(root: str, check: bool) -> dict:
             del want
         cases[site] = rec
         del x, w8, wk, sw, res, got
+        torch.cuda.empty_cache()
+    for site, M, K, N, act, pair in GATED_SITES:
+        x, ws = gated_operands(gen, M, K, N, pair)
+        lay = [w.t().contiguous().t() if gated_kmajor and w.dtype == torch.int8 else w
+               for w in ws]
+        fn, plain = ((int8_matmul.gated_matmul_pair, int8_matmul.gated_matmul_pair_plain)
+                     if pair else (int8_matmul.gated_matmul, int8_matmul.gated_matmul_plain))
+        # the old mma.sync body's name holds int8_gemm, the wgmma kernel's int8_gated
+        got, rec = _gemm_record(lambda: fn(x, *lay, act=act), 2 * M * K * 2 * N, (x, *ws),
+                                ("int8_gemm", "int8_gated"))
+        if check:
+            want = plain(x, *ws, act=act)
+            rec["equal_to_plain"] = bool(torch.equal(got, want))
+            rec["max_abs_err"] = (got.float() - want.float()).abs().max().item()
+            deq = [(w.bfloat16() * s.bfloat16()).contiguous() for w, s in zip(ws[::2], ws[1::2])]
+            rec["bf16_matmul_ms"] = _yardstick_ms(x, *deq)
+            del want, deq
+        cases[site] = rec
+        del x, ws, lay, got
         torch.cuda.empty_cache()
     return cases
 
@@ -416,7 +472,7 @@ def _int4_worker(root: str, check: bool) -> dict:
         pk = p4.t().contiguous().t() if kmajor else p4
         got, rec = _gemm_record(
             lambda: int4_matmul.quantized_matmul_int4(x, pk, sw, residual=res),
-            2 * M * K * N, (x, p4, sw, res), "w4a8_gemm")
+            2 * M * K * N, (x, p4, sw, res), ("w4a8_gemm",))
         if check:
             want = int4_matmul.quantized_matmul_int4_plain(x, p4, sw, res)
             rec["equal_to_plain"] = bool(torch.equal(got, want))
@@ -581,7 +637,8 @@ def main():
     kind.add_argument("--kvq", action="store_true",
                       help="time the decode-attention kernel B8 instead, cold L2")
     kind.add_argument("--int8", action="store_true",
-                      help="time the W8A8 GEMM B3 instead, at chip_smoke.py phase 5's sites")
+                      help="time the W8A8 GEMMs B3, B4 and B6 instead, at chip_smoke.py "
+                           "phases 5, 6 and 8's sites")
     kind.add_argument("--int4", action="store_true",
                       help="time the W4A8 GEMM B7 instead, at chip_smoke.py phase 9's sites "
                            "and at M 8")
@@ -634,9 +691,10 @@ def main():
 
 
 def _gemm_report(kernel, runs, smi):
-    """Per site both trees' call and GEMM times (``kernel`` B3 or B7); exits
-    non-zero when an output's hash differs between the trees or between runs,
-    or this tree's output is not its plain version's."""
+    """Per site both trees' call and GEMM times (``kernel`` B3 or B7; the
+    gated sites carry their own names); exits non-zero when an output's hash
+    differs between the trees or between runs, or this tree's output is not
+    its plain version's."""
     out, bad = {}, []
     for site, first in runs["change"][0].items():
         recs = {tree: [r[site] for r in runs[tree]] for tree in runs}
@@ -660,7 +718,8 @@ def _gemm_report(kernel, runs, smi):
             "baseline_kernels": recs["baseline"][0]["kernels"],
             "change_kernels": first["kernels"],
             "sha256_equal": len(hashes) == 1, "equal_to_plain": first["equal_to_plain"]}
-        print(f"{kernel} {site}: call baseline {base[0]:.4f}/{base[1]:.4f} ms, change "
+        title = site if site in {g[0] for g in GATED_SITES} else f"{kernel} {site}"
+        print(f"{title}: call baseline {base[0]:.4f}/{base[1]:.4f} ms, change "
               f"{new[0]:.4f}/{new[1]:.4f} ms ({o['speedup']:.2f}x, {o['call_tops']:.1f} TOP/s); device GEMM "
               "baseline " + "/".join(f"{x:.4f}" for x in o["baseline_gemm_ms"])
               + " ms, change " + "/".join(f"{x:.4f}" for x in gemm)

@@ -78,7 +78,7 @@ H100_BF16_PEAK_TFLOPS = 989.0  # NVIDIA H100 SXM data sheet, dense, 700 W
 FAMILIES = (  # first match wins, on the lower-cased kernel name
     ("kvq decode (B8)", ("kvq_",)),
     ("flash", ("flash_blhd",)),
-    ("int8 gated gemm (B4/B6)", ("int8_gemm_kernel<true>",)),
+    ("int8 gated gemm (B4/B6)", ("int8_gated_wgmma",)),
     ("int8 gemm (B3)", ("int8_gemm",)),
     ("w4a8 gemm (B7)", ("w4a8_gemm",)),
     ("int8 quantize", ("quantize_blocks",)),
@@ -311,12 +311,16 @@ def main():
     if total_us == 0:
         raise RuntimeError("the profiler recorded no device time")
     busy = total_us / 1e6 / prof_wall
-    if launches["quantized_matmul"]:  # B3's launches ran its wgmma kernel, none the old body
-        b3 = sum(n for name, _, n in rows if "int8_gemm_wgmma" in name)
-        old = sum(n for name, _, n in rows if "int8_gemm_kernel<false>" in name)
-        if b3 != launches["quantized_matmul"] or old != launches["int8_matmul"]:
-            raise RuntimeError(f"{b3} int8_gemm_wgmma_kernel and {old} int8_gemm_kernel<false> "
-                               f"device launches for {launches['quantized_matmul']} B3 calls")
+    # B3's calls ran its wgmma kernel, B4's and B6's the gated wgmma kernel,
+    # and the mma.sync body (int8_gemm_kernel) only B9's calls.
+    int8_calls = {"int8_gemm_wgmma": launches["quantized_matmul"],
+                  smoke.GATED_KERNEL: launches["gated_matmul"] + launches["gated_matmul_pair"],
+                  "int8_gemm_kernel": launches["int8_matmul"]}
+    if any(int8_calls.values()):
+        ran = {key: sum(n for name, _, n in rows if key in name) for key in int8_calls}
+        if ran != int8_calls:
+            raise RuntimeError(f"int8 GEMM device launches {ran} for the wrappers' calls "
+                               f"{int8_calls}")
     if launches["quantized_matmul_int4"]:  # B7's launches ran its wgmma kernel, no other
         b7 = {name: n for name, _, n in rows if _family(name) == "w4a8 gemm (B7)"}
         if (sum(b7.values()) != launches["quantized_matmul_int4"]

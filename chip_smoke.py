@@ -13,7 +13,8 @@ nvcc per source, side by side) and then, one line per phase:
    ``kvq_decode.cu`` and prints the build time and ptxas's registers and
    spills (the flash kernel and B8 per instance, with their stack and
    dynamic shared memory, which must match the wrappers' own plans; a spill
-   store in the flash kernel or B7, or ptxas's warning that it serialised a
+   store in the flash kernel or the int8 and int4 GEMMs (B3, B4, B6, B7,
+   B9), or ptxas's warning that it serialised a
    kernel's wgmmas (C7515, C7518), fails);
 3. B1: holds the flash kernel against its plain PyTorch version at the bf16
    path's shapes (flan-t5-large encoder: B 32, L 512 and 640, H 16, Dh 64,
@@ -39,9 +40,15 @@ nvcc per source, side by side) and then, one line per phase:
    events), the GEMM's and the quantize pass's device times (torch.profiler,
    in a worker process) and bf16 ``torch.matmul`` on the same shape as a
    yardstick;
-6. B4: the gated GEMM at xl wi_g with gelu_new, the same gate plus a stated
-   tanh allowance; swapped halves and relu must fail; bf16 ``torch.matmul``
-   over the dequantized wi_g as a yardstick;
+6. B4: the gated wgmma GEMM (its registers and shared memory from the build
+   log) at xl wi_g with gelu_new, on the K-major [2N, K] buffer the model
+   holds, and at a ragged M of 1100: the same gate plus a stated tanh
+   allowance, and the count of elements not bit-equal to the plain version;
+   swapped halves and relu must fail, and a row-major wi_g must raise; the
+   whole call's time (CUDA events), the GEMM's and the quantize pass's
+   device times (torch.profiler, in phase 5's worker process), TOP/s and
+   the multiple of the bound; bf16 ``torch.matmul`` over the dequantized
+   wi_g as a yardstick;
 7. B5: the GQA flash kernel on [B, H, L, Dh] views of the projections at
    Qwen2.5-3B's attention shapes (H 16, KV 2, Dh 128): (a) a left-padded
    causal batch, B 32, L 640, one all-padding row; (b) a shared-prefix
@@ -52,10 +59,12 @@ nvcc per source, side by side) and then, one line per phase:
    every key tile but one padding; KV head h % KV, K/V one key tile late,
    causal offset 0 and no window must fail the gate; each case prints the
    share of key tiles the kernel loads (``flash.key_tiles``);
-8. B6: the gated pair over two separate int8 weights at Qwen2.5-3B's FFN
-   ([20480, 2048] x 2 x [2048, 11008], silu), one bf16 ulp plus a silu
-   allowance; gate and up swapped must fail; the two bf16 products'
-   torch.matmul time as a yardstick;
+8. B6: the gated pair on the same kernel over two separate K-major int8
+   weights at Qwen2.5-3B's FFN ([20480, 2048] x 2 x [2048, 11008], silu,
+   bf16 scales) and at a ragged M of 1100, one bf16 ulp plus a silu
+   allowance, with the count not bit-equal; gate and up swapped must fail
+   and a row-major weight must raise; times as in phase 6; the two bf16
+   products' torch.matmul time as a yardstick;
 9. B7: the W4A8 GEMM (its wgmma kernel's registers and shared memory from
    the build log) on K-major packed weights, as the models hold them, at
    Qwen2.5-3B's int4 FFN sites (gate/up, G 512; down, G 256), a ragged M
@@ -142,6 +151,7 @@ the JAX package. Scratch files go to ``build/chip_smoke/`` in the checkout.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -317,8 +327,8 @@ def phase_build():
         if serialised:
             raise AssertionError(f"{name}.cu: ptxas serialised the wgmmas: {serialised}")
         funcs = _ptxas_functions(log)
-        if name == "int4_w4a8" and any(f[2] for f in funcs):
-            raise AssertionError(f"int4_w4a8.cu spills: {funcs}")
+        if name in ("int8_fusedq", "int4_w4a8") and any(f[2] for f in funcs):
+            raise AssertionError(f"{name}.cu spills: {funcs}")
         if name == "flash_blhd":
             parts.append(_flash_build_text(funcs))
             continue
@@ -540,7 +550,20 @@ def _ulp_gate(got, want, allowance=0.0):
 B3_KERNEL = "int8_gemm_wgmma_kernel"  # B3's GEMM; the quantize pass is quantize_blocks_kernel
 
 
+GATED_KERNEL = "int8_gated_wgmma_kernel"  # B4's and B6's GEMM
+
+
 B7_KERNEL = "w4a8_gemm_wgmma_kernel"  # B7's GEMM; the quantize pass is quantize_blocks_kernel
+
+
+def _refusal(what, call) -> str:
+    """The message of the ValueError that ``call`` (a kernel wrapper given a
+    row-major weight) must raise."""
+    try:
+        call()
+    except ValueError as exc:
+        return str(exc)
+    raise AssertionError(f"{what} took a row-major weight")
 
 
 def _gemm_build_text(source, kernel, smem) -> str:
@@ -552,8 +575,9 @@ def _gemm_build_text(source, kernel, smem) -> str:
     return f"{kernel}: {regs}, {smem} B dynamic shared memory"
 
 
+@functools.lru_cache(maxsize=None)
 def _gemm_device_times(kind):
-    """Per site of B3 (``kind`` "int8") or B7 ("int4"), the GEMM's and the
+    """Per site of B3, B4 and B6 (``kind`` "int8") or B7 ("int4"), the GEMM's and the
     quantize pass's device ms and the kernels one call launches, from
     torch.profiler in a process of its own (``chip_flash_ab.py --<kind>``'s
     worker on this tree): a profiler session leaves later sessions in its
@@ -592,12 +616,7 @@ def phase_quantized_matmul(gen):
         res = (torch.randn(M, N, generator=gen, device="cuda").bfloat16()
                if with_res else None)
         if not cases:
-            try:
-                int8_matmul.quantized_matmul(x, w8, sw, residual=res)
-            except ValueError as exc:
-                refused = str(exc)
-            else:
-                raise AssertionError("B3 took a row-major weight")
+            refused = _refusal("B3", lambda: int8_matmul.quantized_matmul(x, w8, sw, residual=res))
         got = int8_matmul.quantized_matmul(x, w8k, sw, residual=res)
         torch.cuda.synchronize()
         want = int8_matmul.quantized_matmul_plain(x, w8, sw, res)
@@ -668,20 +687,49 @@ def phase_quantized_matmul(gen):
     return _record(err, ms, plain_ms, bound, None, gemm_ms=gemm, quantize_ms=qpass)
 
 
-def phase_gated_matmul(gen):
-    """B4 at flan-t5-xl's wi_g: [20480, 2048] x [2048, 2 x 5120], gelu_new."""
-    M, K, N = 32 * 640, 2048, 5120
-    x, wp, sp = ab.int8_operands(gen, M, K, 2 * N)
-    got = int8_matmul.gated_matmul(x, wp, sp, act="gelu_new")
+def _gated_case(gen, site, M, K, N, act, pair, allowance_rel):
+    """One B4 (``pair`` False) or B6 site of :data:`chip_flash_ab.GATED_SITES`
+    on the K-major weights the models hold: (x, the weights as the kernel
+    takes them, the row-major ones, output, the plain version's, max |diff|,
+    the gate's allowance, elements not bit-equal).
+    Raises on a wrong shape, a non-finite value or an element over the gate."""
+    x, ws = ab.gated_operands(gen, M, K, N, pair)
+    wk = [quant.to_kmajor(w) if w.dtype == torch.int8 else w for w in ws]
+    fn, plain = ((int8_matmul.gated_matmul_pair, int8_matmul.gated_matmul_pair_plain)
+                 if pair else (int8_matmul.gated_matmul, int8_matmul.gated_matmul_plain))
+    got = fn(x, *wk, act=act)
     torch.cuda.synchronize()
-    want = int8_matmul.gated_matmul_plain(x, wp, sp, "gelu_new")
+    want = plain(x, *ws, act=act)
     if not torch.isfinite(got).all() or got.shape != (M, N):
-        raise AssertionError(f"B4: shape {tuple(got.shape)} or not finite")
-    allowance = TANH_ALLOWANCE * want.float().abs().max().item()
+        raise AssertionError(f"{site}: shape {tuple(got.shape)} or not finite")
+    allowance = allowance_rel * want.float().abs().max().item()
     err, bad = _ulp_gate(got, want, allowance)
     if bad:
-        raise AssertionError(f"B4: {bad} elements over the gate, max |diff| {err}")
-    relu = int8_matmul.gated_matmul(x, wp, sp, act="relu")
+        raise AssertionError(f"{site}: {bad} elements over the gate, max |diff| {err}")
+    return x, wk, ws, got, want, err, allowance, int((got != want).sum())
+
+
+def _gated_device_text(site, M, K, N):
+    """B4's or B6's GEMM and quantize-pass device ms at ``site`` (a worker
+    process, :func:`_gemm_device_times`), its TOP/s and multiple of the
+    bound: (gemm ms, quantize ms, text)."""
+    dev = _gemm_device_times("int8")[site]
+    gemm, qpass = _gemm_and_quantize_ms(site, dev, GATED_KERNEL)
+    ops = 2 * M * K * 2 * N
+    return gemm, qpass, (f"device: GEMM {gemm:.4f} ms ({ops / gemm / 1e9:.1f} TOP/s, "
+                         f"{gemm / dev['bound_ms']:.2f}x its bound), quantize pass "
+                         f"{qpass:.4f} ms")
+
+
+def phase_gated_matmul(gen):
+    """B4 at flan-t5-xl's wi_g: [20480, 2048] x [2048, 2 x 5120], gelu_new, on
+    the K-major [2N, K] buffer the model holds, and at a ragged M of 1100; a
+    row-major wi_g must raise."""
+    (site, M, K, N, act, _), (rsite, rM, *_) = ab.GATED_SITES[:2]
+    x, (wk, sp), (wp, _), got, want, err, allowance, differ = _gated_case(
+        gen, site, M, K, N, act, False, TANH_ALLOWANCE)
+    refused = _refusal("B4", lambda: int8_matmul.gated_matmul(x, wp, sp, act=act))
+    relu = int8_matmul.gated_matmul(x, wk, sp, act="relu")
     relu_err, relu_bad = _ulp_gate(relu, int8_matmul.gated_matmul_plain(x, wp, sp, "relu"))
     if relu_bad:
         raise AssertionError(f"B4 relu: {relu_bad} elements over the gate")
@@ -694,62 +742,70 @@ def phase_gated_matmul(gen):
     if blind:
         raise AssertionError(f"B4: the gate passes {blind}")
     ms, plain_ms, runs = _in_turns(
-        lambda: int8_matmul.gated_matmul(x, wp, sp, act="gelu_new"),
+        lambda: int8_matmul.gated_matmul(x, wk, sp, act="gelu_new"),
         lambda: int8_matmul.gated_matmul_plain(x, wp, sp, "gelu_new"), 3)
     tops = 2 * M * K * 2 * N / (ms * 1e-3) / 1e12
     bound = _bound(2 * M * K * 2 * N, _nbytes(x, wp, sp, got), H100_INT8_OPS)
     wb = (wp.bfloat16() * sp.bfloat16()).contiguous()  # wi_g dequantized, [K, 2N]
     yard = _cuda_ms(lambda: x @ wb, iters=10, warmup=2)
-    print(f"[6/{N_PHASES}] B4 gated W8A8 GEMM vs plain, wi_g [{M}, {K}]x[{K}, 2x{N}] "
-          f"K-block {int8_matmul.kblock(K, N, x.dtype, gated=True)}, gelu_new: max |diff| "
-          f"{err:.4g} (gate 2^-7 |want| + 1e-6 + tanh allowance {allowance:.4g}); relu "
-          f"{relu_err:.4g}; over the gate with the halves swapped "
+    del x, wk, wp, sp, got, wb
+    torch.cuda.empty_cache()
+    rerr, rdiffer = _gated_case(gen, rsite, rM, K, N, act, False, TANH_ALLOWANCE)[5::2]
+    gemm, qpass, dev_text = _gated_device_text(site, M, K, N)
+    build = _gemm_build_text("int8_fusedq", GATED_KERNEL,
+                             int8_matmul._lib().gated_matmul_smem_bytes())
+    print(f"[6/{N_PHASES}] B4 gated W8A8 GEMM ({build}) vs plain, K-major wi_g "
+          f"[{M}, {K}]x[{K}, 2x{N}] K-block {int8_matmul.kblock(K, N, torch.bfloat16, gated=True)}, "
+          f"gelu_new (a row-major wi_g raises: {refused!r}): max |diff| {err:.4g} (gate 2^-7 "
+          f"|want| + 1e-6 + tanh allowance {allowance:.4g}), {differ} elements not bit-equal "
+          f"to the plain version; relu {relu_err:.4g}; ragged M {rM} max |diff| {rerr:.4g}, "
+          f"{rdiffer} not bit-equal; over the gate with the halves swapped "
           f"{ctl['halves swapped']} and with relu for gelu_new "
           f"{ctl['relu for gelu_new']} elements; kernel {ms:.4f} ms ({tops:.1f} TOP/s), "
-          f"plain {plain_ms:.4f} ms ({_turns_text(runs)}); bound {bound[0]:.4f} ms "
+          f"plain {plain_ms:.4f} ms ({_turns_text(runs)}); {dev_text}; bound {bound[0]:.4f} ms "
           f"({bound[1]}); no one PyTorch call computes it; yardstick for timing only: bf16 "
           f"torch.matmul over the dequantized wi_g [{K}, {2 * N}] {yard:.4f} ms")
-    return _record(err, ms, plain_ms, bound, None, yardstick_ms=yard,
-                   yardstick="bf16 torch.matmul over the dequantized wi_g")
+    return _record(err, ms, plain_ms, bound, None, gemm_ms=gemm, quantize_ms=qpass,
+                   yardstick_ms=yard, yardstick="bf16 torch.matmul over the dequantized wi_g")
 
 
 def phase_gated_pair(gen):
-    """B6 at Qwen2.5-3B's FFN: [20480, 2048] x two [2048, 11008], silu."""
-    M, K, N = 32 * 640, 2048, 11008
-    x, w0, s0 = ab.int8_operands(gen, M, K, N)
-    w1, s1 = quantize_weight(torch.randn(K, N, generator=gen, device="cuda") * K**-0.5)
-    # The decoder's scales are bf16 leaves, which the kernel reads in place.
-    s0, s1 = s0.bfloat16(), s1.bfloat16()
-    got = int8_matmul.gated_matmul_pair(x, w0, s0, w1, s1)
-    torch.cuda.synchronize()
-    want = int8_matmul.gated_matmul_pair_plain(x, w0, s0, w1, s1)
-    if not torch.isfinite(got).all() or got.shape != (M, N):
-        raise AssertionError(f"B6: shape {tuple(got.shape)} or not finite")
-    allowance = SILU_ALLOWANCE * want.float().abs().max().item()
-    err, bad = _ulp_gate(got, want, allowance)
-    if bad:
-        raise AssertionError(f"B6: {bad} elements over the gate, max |diff| {err}")
+    """B6 at Qwen2.5-3B's FFN: [20480, 2048] x two [2048, 11008], silu, on
+    the K-major w_gate and w_up the model holds (bf16 scales, read in place),
+    and at a ragged M of 1100; a row-major weight must raise."""
+    (site, M, K, N, act, _), (rsite, rM, *_) = ab.GATED_SITES[2:]
+    x, wk, (w0, s0, w1, s1), got, want, err, allowance, differ = _gated_case(
+        gen, site, M, K, N, act, True, SILU_ALLOWANCE)
+    refused = _refusal("B6", lambda: int8_matmul.gated_matmul_pair(x, w0, s0, wk[2], s1))
     ctl = _ulp_gate(got, int8_matmul.gated_matmul_pair_plain(x, w1, s1, w0, s0), allowance)[1]
     del want
     if ctl == 0:
         raise AssertionError("B6: the gate passes gate and up swapped")
     ms, plain_ms, runs = _in_turns(
-        lambda: int8_matmul.gated_matmul_pair(x, w0, s0, w1, s1),
+        lambda: int8_matmul.gated_matmul_pair(x, *wk),
         lambda: int8_matmul.gated_matmul_pair_plain(x, w0, s0, w1, s1), 3)
     tops = 2 * M * K * 2 * N / (ms * 1e-3) / 1e12
     bound = _bound(2 * M * K * 2 * N, _nbytes(x, w0, s0, w1, s1, got), H100_INT8_OPS)
     wb0, wb1 = (w.bfloat16() * s.bfloat16() for w, s in ((w0, s0), (w1, s1)))
     yard = _cuda_ms(lambda: (x @ wb0, x @ wb1), iters=10, warmup=2)
-    print(f"[8/{N_PHASES}] B6 gated pair W8A8 GEMM vs plain, silu, Qwen2.5-3B FFN "
-          f"[{M}, {K}]x2x[{K}, {N}] K-block {int8_matmul.kblock(K, N, x.dtype, gated=True)}: "
-          f"max |diff| {err:.4g} (gate 2^-7 |want| + 1e-6 + silu allowance "
-          f"{allowance:.4g}); over the gate with gate and up swapped {ctl} elements; "
-          f"kernel {ms:.4f} ms ({tops:.1f} TOP/s), plain {plain_ms:.4f} ms "
-          f"({_turns_text(runs)}); bound {bound[0]:.4f} ms ({bound[1]}); no one PyTorch "
-          f"call computes it; yardstick for timing only: the two bf16 products "
-          f"(torch.matmul on the dequantized weights) {yard:.4f} ms")
-    return _record(err, ms, plain_ms, bound, None, yardstick_ms=yard,
-                   yardstick="two bf16 torch.matmul on the dequantized weights")
+    del x, wk, w0, s0, w1, s1, got, wb0, wb1
+    torch.cuda.empty_cache()
+    rerr, rdiffer = _gated_case(gen, rsite, rM, K, N, act, True, SILU_ALLOWANCE)[5::2]
+    gemm, qpass, dev_text = _gated_device_text(site, M, K, N)
+    build = _gemm_build_text("int8_fusedq", GATED_KERNEL,
+                             int8_matmul._lib().gated_matmul_smem_bytes())
+    print(f"[8/{N_PHASES}] B6 gated pair W8A8 GEMM ({build}) vs plain, silu, Qwen2.5-3B FFN "
+          f"[{M}, {K}]x2x[{K}, {N}] K-major, K-block "
+          f"{int8_matmul.kblock(K, N, torch.bfloat16, gated=True)} (a row-major weight "
+          f"raises: {refused!r}): max |diff| {err:.4g} (gate 2^-7 |want| + 1e-6 + silu "
+          f"allowance {allowance:.4g}), {differ} elements not bit-equal to the plain version; "
+          f"ragged M {rM} max |diff| {rerr:.4g}, {rdiffer} not bit-equal; over the gate with "
+          f"gate and up swapped {ctl} elements; kernel {ms:.4f} ms ({tops:.1f} TOP/s), plain "
+          f"{plain_ms:.4f} ms ({_turns_text(runs)}); {dev_text}; bound {bound[0]:.4f} ms "
+          f"({bound[1]}); no one PyTorch call computes it; yardstick for timing only: the two "
+          f"bf16 products (torch.matmul on the dequantized weights) {yard:.4f} ms")
+    return _record(err, ms, plain_ms, bound, None, gemm_ms=gemm, quantize_ms=qpass,
+                   yardstick_ms=yard, yardstick="two bf16 torch.matmul on the dequantized weights")
 
 
 def _w4_zero_point(x, sw):

@@ -1,7 +1,7 @@
 // Pieces of the int8 tensor-core GEMMs: the per-row, per-K-block activation
-// quantize pass (every int8 and int4 GEMM), and for the mma.sync bodies of
-// int8_fusedq.cu the m16n8k32 s8 mma, ldmatrix, and the byte transpose that
-// stages an N-contiguous int8 weight tile K-major.
+// quantize pass (every int8 and int4 GEMM), and for the mma.sync body of
+// int8_fusedq.cu (B9) the m16n8k32 s8 mma, ldmatrix, and the byte transpose
+// that stages an N-contiguous int8 weight tile K-major.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,11 +1,12 @@
-// Pieces of the int8 wgmma GEMMs (int8_fusedq.cu, B3; int4_w4a8.cu, B7): the
+// Pieces of the int8 wgmma GEMMs (int8_fusedq.cu, B3, B4, B6; int4_w4a8.cu, B7): the
 // mbarrier ring, 2-D TMA loads and stores, shared-memory descriptors and the
 // wgmma.mma_async m64nNk32.s32.s8.s8 wrapper, as wgmma_bf16.cuh holds the
 // bf16 forms for flash_blhd.cu. int8 wgmma reads both operands from shared
 // memory K-major only (the transpose flags exist for 16-bit types alone), so
-// A is the activations [M, K] and B the weight's [N, K] buffer: B3's in rows
-// of 128 bytes under the 128-byte swizzle that TMA writes, B7's (packed
-// bytes expanded to s8) in rows of 64 bytes under the 64-byte swizzle.
+// A is the activations [M, K] and B the weights' [N, K] buffers: B3's, B4's
+// and B6's in rows of 128 bytes under the 128-byte swizzle that TMA writes,
+// B7's (packed bytes expanded to s8) in rows of 64 bytes under the 64-byte
+// swizzle.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap

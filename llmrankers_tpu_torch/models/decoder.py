@@ -86,7 +86,7 @@ class Decoder(nn.Module):
         self.use_flash = use_flash
         self.plain_kernels = False  # kernel sites call the plain versions
 
-        # B3's and B7's leaves (models/quant.py); the int8 head stays row-major
+        # the GEMMs' K-major leaves (models/quant.py); the int8 head stays row-major
         kmajor = kmajor_leaves({k: v for k, v in quant.items() if k not in HEAD_LEAVES})
 
         def leaf(name, shape):

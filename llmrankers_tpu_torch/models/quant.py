@@ -4,17 +4,20 @@ Counterpart of ``llmrankers_tpu/models/quant.py``. Every function gives the
 JAX function's leaves bit for bit on the same float weights (the formulas in
 f32, as JAX writes them), and weights keep the JAX shape ``[K, N]``.
 
-Layout: the int8 layer leaves that the W8A8 GEMM (B3) reads and the
-packed int4 leaves that the W4A8 GEMM (B7) reads are stored K-major
+Layout: every int8 layer leaf with a ``_scale`` leaf (the W8A8 GEMM B3's
+weights and the gated GEMMs' B4 ``wi_g``, B6 ``w_gate`` and ``w_up``) and
+every packed int4 leaf (the W4A8 GEMM B7's) is stored K-major
 (:func:`kmajor_leaves`): an ``[N, K]`` buffer seen through its transpose,
 shape ``[K, N]`` with stride ``(1, K)`` (packed int4: ``[N, K/2]`` seen as
 ``[K/2, N]``, stride ``(1, K/2)``), the same values and bytes as the
 row-major leaf. Hopper's int8 ``wgmma`` reads both operands K-major from
-shared memory only, so both kernels load these buffers by TMA as they lie.
-The leaves of the gated kernels (B4: T5 ``wi_g``; B6: the decoder's
-``w_gate`` and ``w_up``) and the decoder's int8 head stay row-major and
-contiguous. The allocators (``T5Stack``, ``Decoder``) lay the leaves out
-through :func:`empty_leaf`, so every ``copy_`` into them (the quantizers,
+shared memory only, so the kernels load these buffers by TMA as they lie.
+T5's packed ``wi_g`` ``[K, 2N]`` is one ``[2N, K]`` buffer: rows ``0..N-1``
+are the gate's columns, rows ``N..2N-1`` the up projection's. The dequantized
+matmul below the kernels' M threshold reads the same transposed views with
+no copy. The decoder's int8 head stays row-major and contiguous. The
+allocators (``T5Stack``, ``Decoder``) lay the leaves out through
+:func:`empty_leaf`, so every ``copy_`` into them (the quantizers,
 ``params_from_jax``) keeps the layout.
 
 T5: symmetric per-output-channel int8 for every per-layer matmul weight,
@@ -71,20 +74,14 @@ T5_PACKS = {
 }
 
 
-# int8 leaves with a ``_scale`` leaf that the gated kernels read (B4, B6):
-# they stay row-major.
-GATED_LEAVES = ("wi_g", "w_gate", "w_up")
-
-
 def kmajor_leaves(specs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]]) -> frozenset:
     """The layer leaves of ``specs`` (name -> (shape, dtype)) stored K-major:
-    every int8 leaf with a ``_scale`` leaf (the W8A8 sites, which B3 reads)
-    but :data:`GATED_LEAVES`, and every packed int4 leaf (with a ``_scale4``
-    leaf, which B7 reads)."""
+    every int8 leaf with a ``_scale`` leaf (the W8A8 sites, which B3, B4 and
+    B6 read) and every packed int4 leaf (with a ``_scale4`` leaf, which B7
+    reads)."""
     return frozenset(name for name, (_, dt) in specs.items()
-                     if dt == torch.int8 and (
-                         (name + SCALE_SUFFIX in specs and name not in GATED_LEAVES)
-                         or name + SCALE4_SUFFIX in specs))
+                     if dt == torch.int8 and (name + SCALE_SUFFIX in specs
+                                              or name + SCALE4_SUFFIX in specs))
 
 
 def empty_leaf(shape, dtype, device, kmajor: bool = False) -> torch.Tensor:

@@ -118,7 +118,7 @@ class T5Stack(nn.Module):
         shapes = _layer_shapes(cfg, decoder)
         specs = ({k: (s, None) for k, s in shapes.items()} if not quantized else
                  int8_layer_specs(shapes, "decoder" if decoder else "encoder"))
-        kmajor = kmajor_leaves(specs)  # B3's leaves (models/quant.py)
+        kmajor = kmajor_leaves(specs)  # the int8 GEMMs' leaves (models/quant.py)
         self.rel_bias = _empty(
             (cfg.relative_attention_num_buckets, cfg.num_heads), dtype, device
         )

@@ -158,9 +158,7 @@ def quantized_matmul_int4(
             raise ValueError("residual: the kernel takes a contiguous tensor")
         res2 = residual.reshape(M, N)
         _check("residual", res2, torch.bfloat16, (M, N), x.device)
-    if p4.device != x.device:
-        raise ValueError(f"p4: the kernel takes a tensor on {x.device}, got {p4.device}")
-    check_kmajor("p4", p4, Kh, N)
+    check_kmajor("p4", p4, Kh, N, x.device)
     _check("sw", sw, torch.float32, (K // G, N), x.device)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:

@@ -17,11 +17,12 @@ over all of K.
 On a CUDA tensor :func:`quantized_matmul`, :func:`gated_matmul`,
 :func:`gated_matmul_pair` and :func:`int8_matmul` launch the hand-written
 kernels of ``csrc/int8_fusedq.cu`` (bf16 x, ``sm_90a``) or raise;
-:func:`quantized_matmul` (B3, on ``wgmma``) takes its weight K-major
-(:func:`check_kmajor`), the others row-major and contiguous. On a CPU
-tensor they run the plain versions, which compute the same numbers step by
-step: the same quantized int8 values, exact integer sums (taken in float64,
-exact below 2^53), the same f32 fold order.
+:func:`quantized_matmul` (B3), :func:`gated_matmul` (B4) and
+:func:`gated_matmul_pair` (B6), on ``wgmma``, take their weights K-major
+(:func:`check_kmajor`), :func:`int8_matmul` (B9) row-major and contiguous.
+On a CPU tensor they run the plain versions, which compute the same numbers
+step by step: the same quantized int8 values, exact integer sums (taken in
+float64, exact below 2^53), the same f32 fold order.
 """
 from __future__ import annotations
 
@@ -247,12 +248,15 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> Non
         raise ValueError(f"{name}: base pointer must be 16-byte aligned")
 
 
-def check_kmajor(name: str, w: torch.Tensor, K: int, N: int) -> None:
-    """Raise unless ``w`` is the K-major int8 ``[K, N]`` weight B3's kernel
-    loads by TMA (or B7's packed int4 leaf, with ``K/2`` rows): an ``[N, K]``
-    buffer seen through its transpose (stride ``(1, K)``,
-    ``models/quant.py::to_kmajor``) with a 16-byte-aligned base. A row-major
-    weight is refused, not copied."""
+def check_kmajor(name: str, w: torch.Tensor, K: int, N: int, device=None) -> None:
+    """Raise unless ``w`` is the K-major int8 ``[K, N]`` weight that B3's,
+    B4's and B6's kernels load by TMA (or B7's packed int4 leaf, with ``K/2``
+    rows): an ``[N, K]`` buffer seen through its transpose (stride
+    ``(1, K)``, ``models/quant.py::to_kmajor``) with a 16-byte-aligned base,
+    on ``device`` when one is given. A row-major weight is refused, not
+    copied."""
+    if device is not None and w.device != device:
+        raise ValueError(f"{name}: the kernel takes a tensor on {device}, got {w.device}")
     if w.dtype != torch.int8 or tuple(w.shape) != (K, N):
         raise ValueError(f"{name}: the kernel takes an int8 [{K}, {N}] weight, got "
                          f"{w.dtype} {list(w.shape)}")
@@ -284,6 +288,29 @@ def _check_x(fn: str, x: torch.Tensor, K: int, N: int) -> torch.Tensor:
     x2 = x.reshape(-1, K)
     _check("x", x2, torch.bfloat16, (x2.shape[0], K), x.device)
     return x2
+
+
+def _kblock_128(fn: str, K: int, N: int, x_dtype: torch.dtype, residual: bool = False,
+                gated: bool = False) -> int:
+    """The K-block rule's value, which the wgmma kernels take in stages of
+    128 columns; raises unless it is a whole number of stages."""
+    kb = kblock(K, N, x_dtype, residual, gated)
+    if kb % 128:
+        raise ValueError(f"{fn}: the kernel takes K-blocks of whole 128 columns, the "
+                         f"rule gives {kb} at {K}x{N}")
+    return kb
+
+
+def _raise_rc(fn: str, rc: int) -> None:
+    """Raise on a wgmma entry's return code: -1000 when the driver has no
+    ``cuTensorMapEncodeTiled``, -CUresult when a tensor map could not be
+    encoded, else a CUDA runtime error code (0: launched)."""
+    if rc == -1000:
+        raise RuntimeError(f"int8_fusedq {fn}: the driver has no cuTensorMapEncodeTiled")
+    if rc < 0:
+        raise RuntimeError(f"int8_fusedq {fn}: tensor map encoding failed (CUresult {-rc})")
+    if rc != 0:
+        raise RuntimeError(f"int8_fusedq {fn} launch failed: CUDA error {rc}")
 
 
 def _scratch(x2: torch.Tensor, kb: int):
@@ -320,16 +347,11 @@ def quantized_matmul(
         if not residual.is_contiguous():
             raise ValueError("residual: the kernel takes a contiguous tensor")
         res2 = residual.reshape(M, N)
-    if w8.device != x.device:
-        raise ValueError(f"w8: the kernel takes a tensor on {x.device}, got {w8.device}")
-    check_kmajor("w8", w8, K, N)
+    check_kmajor("w8", w8, K, N, x.device)
     sw_bf16 = _check_scale("sw", sw, N, x.device)
     if res2 is not None:
         _check("residual", res2, torch.bfloat16, (M, N), x.device)
-    kb = kblock(K, N, x.dtype, residual is not None)
-    if kb % 128:
-        raise ValueError(f"quantized_matmul: the kernel takes K-blocks of whole 128 "
-                         f"columns, the rule gives {kb} at {K}x{N}")
+    kb = _kblock_128("quantized_matmul", K, N, x.dtype, residual is not None)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out.reshape(*lead, N)
@@ -341,14 +363,7 @@ def quantized_matmul(
             x2.data_ptr(), w8.data_ptr(), sw.data_ptr(),
             None if res2 is None else res2.data_ptr(),
             x8.data_ptr(), sx.data_ptr(), out.data_ptr(), M, K, N, kb, sw_bf16, stream)
-    if rc == -1000:
-        raise RuntimeError("int8_fusedq quantized_matmul: the driver has no "
-                           "cuTensorMapEncodeTiled")
-    if rc < 0:
-        raise RuntimeError(f"int8_fusedq quantized_matmul: tensor map encoding failed "
-                           f"(CUresult {-rc})")
-    if rc != 0:
-        raise RuntimeError(f"int8_fusedq quantized_matmul launch failed: CUDA error {rc}")
+    _raise_rc("quantized_matmul", rc)
     quantized_matmul.launches += 1
     return out.reshape(*lead, N)
 
@@ -358,16 +373,17 @@ quantized_matmul.launches = 0
 
 def gated_matmul(
     x: torch.Tensor,  # [..., K]
-    wp: torch.Tensor,  # [K, 2N] int8: gate | up
+    wp: torch.Tensor,  # [K, 2N] int8: gate | up, K-major on the card
     sp: torch.Tensor,  # [1, 2N] f32
     act: str = "gelu_new",
 ) -> torch.Tensor:
     """``act(x @ w0) * (x @ w1)`` over one packed int8 weight, any leading
     dims. CPU tensors take :func:`gated_matmul_plain`; CUDA tensors launch
-    the gated kernel of ``csrc/int8_fusedq.cu`` (the ``[M, 2N]``
-    intermediate is never written) and add one to
+    the quantize pass and the gated wgmma kernel of ``csrc/int8_fusedq.cu``
+    (the ``[M, 2N]`` intermediate is never written) and add one to
     ``gated_matmul.launches``, under the checks of :func:`quantized_matmul`
-    with N the width of one half."""
+    with N the width of one half: ``wp`` is K-major, a ``[2N, K]`` buffer
+    seen as ``[K, 2N]`` (:func:`check_kmajor`), rows ``0..N-1`` the gate's."""
     if act not in _ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if x.device.type == "cpu":
@@ -376,9 +392,9 @@ def gated_matmul(
     N = wp.shape[1] // 2
     x2 = _check_x("gated_matmul", x, K, N)
     M = x2.shape[0]
-    _check("wp", wp, torch.int8, (K, 2 * N), x.device)
+    check_kmajor("wp", wp, K, 2 * N, x.device)
     _check("sp", sp, torch.float32, (1, 2 * N), x.device)
-    kb = kblock(K, N, x.dtype, gated=True)
+    kb = _kblock_128("gated_matmul", K, N, x.dtype, gated=True)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out.reshape(*lead, N)
@@ -389,8 +405,7 @@ def gated_matmul(
         rc = lib.gated_matmul_bf16(
             x2.data_ptr(), wp.data_ptr(), sp.data_ptr(), x8.data_ptr(),
             sx.data_ptr(), out.data_ptr(), M, K, N, kb, _ACTS[act], stream)
-    if rc != 0:
-        raise RuntimeError(f"int8_fusedq gated_matmul launch failed: CUDA error {rc}")
+    _raise_rc("gated_matmul", rc)
     gated_matmul.launches += 1
     return out.reshape(*lead, N)
 
@@ -400,19 +415,19 @@ gated_matmul.launches = 0
 
 def gated_matmul_pair(
     x: torch.Tensor,  # [..., K]
-    w0: torch.Tensor,  # [K, N] int8 (gate)
+    w0: torch.Tensor,  # [K, N] int8 (gate), K-major on the card
     s0: torch.Tensor,  # [1, N] f32 or bf16
-    w1: torch.Tensor,  # [K, N] int8 (up)
+    w1: torch.Tensor,  # [K, N] int8 (up), K-major on the card
     s1: torch.Tensor,  # [1, N], s0's dtype
     act: str = "silu",
 ) -> torch.Tensor:
     """``act(x @ w0) * (x @ w1)`` over two separate int8 weights (the
     decoder's SwiGLU gate and up), any leading dims. CPU tensors take
-    :func:`gated_matmul_pair_plain`; CUDA tensors launch the gated kernel of
-    ``csrc/int8_fusedq.cu`` on the two weights in place (no packed copy; the
-    ``[M, N]`` intermediates are never written) and add one to
-    ``gated_matmul_pair.launches``, under the checks of
-    :func:`quantized_matmul`."""
+    :func:`gated_matmul_pair_plain`; CUDA tensors launch the quantize pass
+    and the gated wgmma kernel of ``csrc/int8_fusedq.cu`` on the two weights
+    in place (no packed copy; the ``[M, N]`` intermediates are never
+    written) and add one to ``gated_matmul_pair.launches``, under the checks
+    of :func:`quantized_matmul`: both weights K-major (:func:`check_kmajor`)."""
     if act not in _ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if x.device.type == "cpu":
@@ -422,10 +437,10 @@ def gated_matmul_pair(
     x2 = _check_x("gated_matmul_pair", x, K, N)
     M = x2.shape[0]
     for name, w in (("w0", w0), ("w1", w1)):
-        _check(name, w, torch.int8, (K, N), x.device)
+        check_kmajor(name, w, K, N, x.device)
     s_bf16 = _check_scale("s0", s0, N, x.device)
     _check("s1", s1, s0.dtype, (1, N), x.device)
-    kb = kblock(K, N, x.dtype, gated=True)
+    kb = _kblock_128("gated_matmul_pair", K, N, x.dtype, gated=True)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out.reshape(*lead, N)
@@ -437,8 +452,7 @@ def gated_matmul_pair(
             x2.data_ptr(), w0.data_ptr(), s0.data_ptr(), w1.data_ptr(), s1.data_ptr(),
             x8.data_ptr(), sx.data_ptr(), out.data_ptr(), M, K, N, kb, _ACTS[act], s_bf16,
             stream)
-    if rc != 0:
-        raise RuntimeError(f"int8_fusedq gated_matmul_pair launch failed: CUDA error {rc}")
+    _raise_rc("gated_matmul_pair", rc)
     gated_matmul_pair.launches += 1
     return out.reshape(*lead, N)
 

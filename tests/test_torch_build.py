@@ -53,7 +53,7 @@ def _source(*names):
 
 def test_int8_source_has_its_entry_points():
     """The W8A8 kernels are one hand-written source with four C entry points
-    (B3, B4, B6, B9) on int8 tensor-core tiles from the shared header."""
+    (B3, B4, B6, B9) on int8 tensor-core tiles from the shared headers."""
     src = _source("int8_fusedq.cu")
     for entry in ("quantized_matmul_bf16", "gated_matmul_bf16", "gated_matmul_pair_bf16",
                   "int8_matmul_bf16"):
@@ -70,8 +70,8 @@ def test_b3_runs_on_a_wgmma_kernel_fed_by_tma():
     stages fed by a producer warp, the per-K-block fold in round-to-nearest
     steps, the output tile stored by TMA; the role branch on a warp index
     broadcast from lane 0 and the wait loop inside one asm block (a
-    divergent path makes ptxas serialise the wgmmas); B4, B6 and B9 stay on
-    the mma.sync kernel."""
+    divergent path makes ptxas serialise the wgmmas); B4's and B6's entries
+    reach the same launcher, and only B9 stays on the mma.sync kernel."""
     src = _source("int8_fusedq.cu")
     hdr = _source("int8_wgmma.cuh")
     for inc in ('#include "int8_wgmma.cuh"', '#include "tma_encode.cuh"'):
@@ -85,16 +85,55 @@ def test_b3_runs_on_a_wgmma_kernel_fed_by_tma():
     assert stages >= 4
     b3 = src.split('extern "C" int quantized_matmul_bf16(')[1].split('extern "C"')[0]
     assert "launch_wgmma(" in b3 and "launch(" not in b3.replace("launch_wgmma(", "")
-    body = src.split("int8_gemm_wgmma_kernel(")[1].split("CUresult encode_2d(")[0]
-    assert "__fadd_rn(accf[q], __fmul_rn(__int2float_rn(acc[q]), sc[h]))" in body
-    assert "mma_sync" not in body and "ldmatrix" not in body
+    loop = src.split("void consume(")[1].split("\n}\n")[0]  # the wgmma kernels' mainloop
+    assert "__fadd_rn(accf[q], __fmul_rn(__int2float_rn(acc[q]), sc[h]))" in loop
+    assert "s8wg::mma_n128(" in loop and "s8wg::wait<1>()" in loop
+    body = src.split("int8_gemm_wgmma_kernel(")[1].split("int8_gated_wgmma_kernel(")[0]
+    assert "consume(accf, ring, cw, r0, p);" in body
+    assert "mma_s8(" not in body + loop and "ldmatrix" not in body + loop
     assert "__shfl_sync(0xffffffffu, tid / 32, 0)" in body and "tma_store_2d(" in body
     wait = hdr.split("void mbar_wait(")[1].split("\n}\n")[0]
     assert "while" not in wait and "mbarrier.try_wait.parity" in wait and "trap;" in wait
     assert "cp.async.bulk.tensor.2d.global.shared::cta" in hdr
-    for entry in ("gated_matmul_bf16", "gated_matmul_pair_bf16", "int8_matmul_bf16"):
+    for entry in ("gated_matmul_bf16", "gated_matmul_pair_bf16"):
         rest = src.split(f'extern "C" int {entry}(')[1].split('extern "C"')[0]
-        assert "launch_wgmma(" not in rest and ("launch(" in rest or "launch_gemm(" in rest)
+        assert "launch_wgmma(" in rest and "launch_gemm(" not in rest
+    b9 = src.split('extern "C" int int8_matmul_bf16(')[1]
+    assert "launch_gemm(" in b9 and "launch_wgmma(" not in b9
+    assert src.count("__global__") == 3  # B9's mma.sync body, B3's and the gated kernel
+
+
+def test_b4_b6_run_on_one_gated_wgmma_kernel():
+    """B4 and B6 run one wgmma kernel on B3's mainloop: per stage the A box
+    and the B tile as two 64-row boxes (w0's rows over w1's, from row
+    w1_row + n0: B4's [2N, K] map at N, B6's second map at 0), the shared
+    fold, and an epilogue that pairs accumulator column c (x . w0) with
+    c + 64 (x . w1) as act(h0 * s0) * (h1 * s1) in round-to-nearest steps,
+    one 64-column panel per warpgroup stored by TMA; blocks in groups of row
+    tiles, row tiles fastest; no gated mma.sync body is left."""
+    src = _source("int8_fusedq.cu")
+    body = src.split("int8_gated_wgmma_kernel(")[1].split("CUresult encode_2d(")[0]
+    assert "int8_gemm_wgmma" not in body  # profilers tell B3's launches by that name
+    assert body.count("s8wg::tma_2d(") == 3
+    assert "s8wg::tma_2d(st + kWgTile, &tb0, ring.full + 8 * s, i * kWgK, n0);" in body
+    assert ("s8wg::tma_2d(st + kWgTile + kWgTile / 2, &tb1, ring.full + 8 * s, i * kWgK,\n"
+            "                     p.w1_row + n0);") in body
+    assert "s8wg::mbar_expect_tx(ring.full + 8 * s, kWgStage);" in body
+    assert "consume(accf, ring, cw, r0, p);" in body
+    for step in ("const float h0 = __fmul_rn(accf[4 * j + 2 * h + e], s0v[2 * j + e]);",
+                 "const float h1 = __fmul_rn(accf[4 * (j + 8) + 2 * h + e], s1v[2 * j + e]);",
+                 "o[e] = __fmul_rn(activate(p.act, h0), h1);"):
+        assert step in body, step
+    assert body.count("s8wg::tma_store_2d(") == 1
+    assert "__shfl_sync(0xffffffffu, tid / 32, 0)" in body
+    assert "m0 = (first + in_group % rows) * kWgRows" in body  # row tiles fastest in a group
+    assert "constexpr int kGatedCols = 64;" in src and "const int box = cols;" in src
+    b4 = src.split('extern "C" int gated_matmul_bf16(')[1].split('extern "C"')[0]
+    assert "p.w1_row = N;" in b4 and "w, w, 2 * N, p," in b4
+    b6 = src.split('extern "C" int gated_matmul_pair_bf16(')[1].split('extern "C"')[0]
+    assert "static_cast<const int8_t*>(w1), N, p," in b6 and "w1_row" not in b6
+    for gone in ("GATED", "tile_col", "int8_gemm_kernel<true>", "template <bool", "ldw"):
+        assert gone not in src, gone
 
 
 @pytest.mark.parametrize("entry", sorted(int8_matmul.ENTRIES))

@@ -195,6 +195,62 @@ def test_layout_check_rejects_a_row_major_weight():
         tint8.check_kmajor("w8", buf.view(N, K).t(), K, N)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("entry", ["gated_matmul_plain", "gated_matmul_pair_plain"])
+def test_gated_plain_gives_the_same_bits_on_kmajor_weights(entry, dtype):
+    """B4's packed wi_g and B6's w_gate and w_up are stored K-major too (an
+    [N, K] buffer seen as [K, N]; wi_g one [2N, K] buffer); the gated plain
+    versions read the views as they lie, over four K-blocks, and give the
+    bits they give on contiguous copies."""
+    rng = np.random.RandomState(6)
+    M, K, N = 64, 5120, 256
+    assert K // tint8.kblock(K, N, dtype, gated=True) == 4
+    x = _torch_x(_activations(rng, M, K), dtype)
+    if entry == "gated_matmul_plain":
+        wp, sp = map(torch.from_numpy, _int8_weight(rng, K, 2 * N))
+        wk = wp.t().contiguous().t()
+        assert wk.stride() == (1, K) and torch.equal(wk, wp)
+        got = tint8.gated_matmul_plain(x, wk, sp, "gelu_new")
+        want = tint8.gated_matmul_plain(x, wp, sp, "gelu_new")
+    else:
+        (w0, s0), (w1, s1) = (map(torch.from_numpy, _int8_weight(rng, K, N)) for _ in "gu")
+        s0, s1 = s0.bfloat16(), s1.bfloat16()  # the decoder's scale leaves
+        got = tint8.gated_matmul_pair_plain(x, w0.t().contiguous().t(), s0,
+                                            w1.t().contiguous().t(), s1)
+        want = tint8.gated_matmul_pair_plain(x, w0, s0, w1, s1)
+    assert got.dtype == dtype and got.shape == (M, N) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("entry", ["gated_matmul", "gated_matmul_pair"])
+def test_gated_wrappers_refuse_a_row_major_weight(entry, monkeypatch):
+    """Past the device check (meta tensors stand in for the card's), B4's and
+    B6's wrappers take their weights K-major and refuse a row-major one,
+    naming the layout, before anything is built or launched."""
+    M, K, N = 16, 256, 128
+
+    def build():
+        raise RuntimeError("build")
+
+    monkeypatch.setattr(tint8, "_check_x", lambda fn, x, K, N: x.reshape(-1, K))
+    monkeypatch.setattr(tint8, "_lib", build)
+    x = torch.empty(M, K, dtype=torch.bfloat16, device="meta")
+    if entry == "gated_matmul":
+        w = torch.empty(K, 2 * N, dtype=torch.int8, device="meta")
+        s = torch.empty(1, 2 * N, dtype=torch.float32, device="meta")
+        calls = [lambda w0: tint8.gated_matmul(x, w0, s)]
+    else:
+        w = torch.empty(K, N, dtype=torch.int8, device="meta")
+        s = torch.empty(1, N, dtype=torch.bfloat16, device="meta")
+        wk = w.t().contiguous().t()
+        calls = [lambda w0: tint8.gated_matmul_pair(x, w0, s, wk, s),
+                 lambda w1: tint8.gated_matmul_pair(x, wk, s, w1, s)]
+    for call in calls:
+        with pytest.raises(ValueError, match=r"K-major.*row-major"):
+            call(w)
+        with pytest.raises(RuntimeError, match="build"):
+            call(w.t().contiguous().t())
+
+
 # ---------------------------------------------------------------------------
 # flash_mha_packed
 # ---------------------------------------------------------------------------

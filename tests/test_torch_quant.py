@@ -110,10 +110,10 @@ def test_quantize_t5_params_matches_jax(variant):
 @pytest.mark.parametrize("source", ["quantizer", "params_from_jax"])
 @pytest.mark.parametrize("variant", ["flan", "relu"])
 def test_b3_leaves_are_kmajor(variant, source):
-    """Every int8 leaf that the W8A8 GEMM (B3) reads is held K-major (shape
-    [K, N], stride (1, K)) with the JAX leaf's values bit for bit, whether it
-    came from the quantizer or from the JAX tree; the gated kernel's wi_g
-    stays contiguous [K, N]."""
+    """Every int8 leaf that the W8A8 GEMMs read (B3, and the gated B4's
+    packed wi_g) is held K-major (shape [K, N], stride (1, K)) with the JAX
+    leaf's values bit for bit, whether it came from the quantizer or from the
+    JAX tree; wi_g is one [2N, K] buffer whose rows N.. are the up half."""
     cfg = CFG128 if variant == "flan" else dataclasses.replace(
         CFG128, feed_forward_proj="relu")
     tree = _tree(cfg)
@@ -126,7 +126,7 @@ def test_b3_leaves_are_kmajor(variant, source):
         got = tt5.params_from_jax(want, _torch_cfg(cfg), device="cpu")
     b3 = {"encoder": {"qkv", "o", "wo"}, "decoder": {"qkv", "o", "cq", "ckv", "co", "wo"}}
     for block in ("encoder", "decoder"):
-        names = b3[block] | ({"wi"} if variant == "relu" else set())
+        names = b3[block] | ({"wi"} if variant == "relu" else {"wi_g"})
         layers = getattr(got, block).layers
         assert tquant.kmajor_leaves({k: (tuple(p.shape), p.dtype)
                                      for k, p in layers[0].items()}) == names
@@ -140,7 +140,10 @@ def test_b3_leaves_are_kmajor(variant, source):
                     assert p.is_contiguous(), key
                 np.testing.assert_array_equal(p.float().numpy(), leaf[i].astype(np.float32))
     if variant == "flan":
-        assert got.encoder.layers[0]["wi_g"].is_contiguous()
+        wi_g = got.encoder.layers[0]["wi_g"]
+        K, N2 = wi_g.shape
+        buf = wi_g.t()  # the [2N, K] buffer the kernel maps
+        assert buf.is_contiguous() and torch.equal(buf[N2 // 2:], wi_g[:, N2 // 2:].t())
 
 
 def test_pack_false_is_not_ported():

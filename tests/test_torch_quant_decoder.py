@@ -148,11 +148,11 @@ def test_quantize_decoder_params_matches_jax(mode, tied):
 @pytest.mark.parametrize("source", ["quantizer", "params_from_jax"])
 @pytest.mark.parametrize("mode", ["int8", "int4_all", "int4_attn"])
 def test_b3_leaves_are_kmajor(mode, source):
-    """The int8 sites that the W8A8 GEMM (B3) reads (wq, wk, wv, wo, w_down)
-    are held K-major (shape [K, N], stride (1, K)), bit for bit the JAX
-    leaves, from the quantizer and from the JAX tree; the packed int4 leaves
-    are K-major too (stride (1, K/2), B7's layout); the gated pair's w_gate
-    and w_up and the int8 head stay contiguous."""
+    """Every int8 site is held K-major (shape [K, N], stride (1, K)), bit for
+    bit the JAX leaves, from the quantizer and from the JAX tree: the W8A8
+    GEMM B3's (wq, wk, wv, wo, w_down) and the gated pair B6's (w_gate,
+    w_up); the packed int4 leaves are K-major too (stride (1, K/2), B7's
+    layout); the int8 head stays contiguous."""
     jcfg, tcfg = _cfgs(tied=mode == "int8")
     if mode == "int4_attn":  # int4 FFN, int8 attention, as at Qwen2.5-3B's widths
         jfn = functools.partial(jquant.quantize_decoder_params_int4,
@@ -169,13 +169,12 @@ def test_b3_leaves_are_kmajor(mode, source):
         got = tdec.params_from_jax(want, tcfg, device="cpu")
     lp0 = got.layers[0]
     int8 = {k for k in tquant.QUANT_TARGETS if k + tquant.SCALE_SUFFIX in lp0}
-    names = int8 - {"w_gate", "w_up"}
     assert int8 == {"int8": set(tquant.QUANT_TARGETS), "int4_all": set(),
                     "int4_attn": {"wq", "wk", "wv", "wo"}}[mode]
     for key, leaf in want["layers"].items():
         for i, lp in enumerate(got.layers):
             p = lp[key]
-            if key in names or key + tquant.SCALE4_SUFFIX in lp0:
+            if key in int8 or key + tquant.SCALE4_SUFFIX in lp0:
                 K, N = leaf.shape[1:]  # packed int4: K/2 rows
                 assert p.stride() == (1, K) and p.shape == (K, N), (key, p.stride())
             else:
