@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the flash kernel (or B8, B3 or B7) of two checkouts in turns on one GPU.
+"""Time the flash kernel (or B8, or the W8A8 or W4A8 GEMMs) of two checkouts in turns on one GPU.
 
 Run from the root of a checkout, with another checkout (for example the
 parent commit, unpacked with ``git archive HEAD | tar -x -C build/parent``)
@@ -43,18 +43,22 @@ version. B8's bound (:func:`kvq_work`) counts only the keys the mask leaves.
 
 With ``--int8`` it times the W8A8 GEMMs instead: B3
 (``ops/int8_matmul.py::quantized_matmul``) at ``chip_smoke.py`` phase 5's
-sites (:data:`B3_SITES`), and the gated B4 (``gated_matmul``) and B6
-(``gated_matmul_pair``) at phases 6's and 8's (:data:`GATED_SITES`): per
-site the whole call (quantize pass and GEMM) from CUDA events, the two
-kernels' device times from torch.profiler, and a sha256 of the output, which
-must be the same for both trees and every run (each tree gets the weights in
-the layout its wrappers take: B3's K-major where it has
-``int8_matmul.check_kmajor``, the gated ones K-major unless its
-``models/quant.py`` still has ``GATED_LEAVES``, else row-major); this tree's
-worker also checks the output against the plain version and times bf16
-``torch.matmul`` over the dequantized weights as a yardstick. The bound is
-the larger of the int8 operations at 1,979 TOP/s and the bytes of x, the
-weights, the scales, the residual and the output at 3.35 TB/s.
+sites (:data:`B3_SITES`), the gated B4 (``gated_matmul``) and B6
+(``gated_matmul_pair``) at phases 6's and 8's (:data:`GATED_SITES`), and B9
+(``int8_matmul``, on activations quantized per row) at phase 10's
+(:data:`B9_SITES`): per site the whole call (quantize pass, where there is
+one, and GEMM) from CUDA events, the kernels' device times from
+torch.profiler, and a sha256 of the output, which must be the same for both
+trees and every run (each tree gets the weights in the layout its wrappers
+take: B3's K-major where it has ``int8_matmul.check_kmajor``, the gated ones
+K-major unless its ``models/quant.py`` still has ``GATED_LEAVES``, B9's
+K-major where its ``int8_matmul`` wrapper calls ``check_kmajor``, else
+row-major); this tree's worker also checks the output against the plain
+version and times bf16 ``torch.matmul`` over the dequantized weights (B9:
+``torch._int_mm``, the int32 product alone) as a yardstick. The bound is
+the larger of the int8 operations at 1,979 TOP/s and the bytes of x (B9:
+x8 and its row scales), the weights, the scales, the residual and the
+output at 3.35 TB/s.
 
 With ``--int4`` it times the W4A8 GEMM B7
 (``ops/int4_matmul.py::quantized_matmul_int4``) the same way, at
@@ -115,6 +119,14 @@ GATED_SITES = (("B4 wi_g", B3_M, 2048, 5120, "gelu_new", False),
 B7_SITES = (("gate/up", B3_M, 2048, 11008, False), ("down", B3_M, 11008, 2048, False),
             ("ragged+res", 1000, 2048, 11008, True),
             ("gate/up M 8", 8, 2048, 11008, False), ("down M 8", 8, 11008, 2048, False))
+
+
+# B9's sites, (name, M, K, N): B3's xl qkv shape, Qwen2.5-3B's w_down (the
+# longest K of the main paths: one int32 sum over 11,008 products) and a
+# ragged M of 1100 at the qkv widths, on activations quantized per row.
+# chip_smoke.py phase 10 checks B9 at the same sites.
+B9_SITES = (("B9 qkv", B3_M, 2048, 6144), ("B9 w_down", B3_M, 11008, 2048),
+            ("B9 ragged", 1100, 2048, 6144))
 
 
 def int8_operands(gen, M, K, N):
@@ -380,13 +392,13 @@ def _gemm_record(call, ops, tensors, gemm_keys) -> dict:
 
 def _yardstick_ms(x, *wbs) -> float:
     """bf16 ``torch.matmul`` of x by each dequantized weight: mean of 10."""
+    return _mean_ms(lambda: [x @ wb for wb in wbs])
+
+
+def _mean_ms(run) -> float:
+    """ms of ``run()`` from CUDA events: mean of 10 after 2."""
     import torch
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-
-    def run():
-        for wb in wbs:
-            x @ wb
-
     for _ in range(2):
         run()
     start.record()
@@ -398,14 +410,15 @@ def _yardstick_ms(x, *wbs) -> float:
 
 
 def _int8_worker(root: str, check: bool) -> dict:
-    """B3 at the phase-5 sites and B4, B6 at :data:`GATED_SITES` (module
-    docstring): per site the whole call's ms from CUDA events, the GEMM's and
-    the quantize pass's device ms from torch.profiler, and a sha256 of the
-    output. A tree whose wrapper checks for K-major weights
-    (``int8_matmul.check_kmajor``) gets B3's K-major, the same values, and
-    one whose ``models/quant.py`` has no ``GATED_LEAVES`` (the gated leaves'
-    row-major exception) gets the gated weights K-major too; an older tree
-    gets them row-major."""
+    """B3 at the phase-5 sites, B4, B6 at :data:`GATED_SITES` and B9 at
+    :data:`B9_SITES` (module docstring): per site the whole call's ms from
+    CUDA events, the GEMM's and the quantize pass's device ms from
+    torch.profiler, and a sha256 of the output. A tree whose wrapper checks
+    for K-major weights (``int8_matmul.check_kmajor``) gets B3's K-major, the
+    same values, and one whose ``models/quant.py`` has no ``GATED_LEAVES``
+    (the gated leaves' row-major exception) gets the gated weights K-major
+    too; B9's weight goes K-major to a tree whose ``int8_matmul`` wrapper
+    calls ``check_kmajor``; an older tree gets them row-major."""
     sys.path.insert(0, root)
     import torch
     from llmrankers_tpu_torch.models import quant
@@ -450,6 +463,22 @@ def _int8_worker(root: str, check: bool) -> dict:
             del want, deq
         cases[site] = rec
         del x, ws, lay, got
+        torch.cuda.empty_cache()
+    b9_kmajor = "check_kmajor" in int8_matmul.int8_matmul.__code__.co_names
+    for site, M, K, N in B9_SITES:
+        x, w8, sw = int8_operands(gen, M, K, N)
+        x8, sx = int8_matmul.quantize_rows(x)
+        wk = w8.t().contiguous().t() if b9_kmajor else w8
+        # the mma.sync body's name and B3's wgmma kernel's both hold int8_gemm
+        got, rec = _gemm_record(lambda: int8_matmul.int8_matmul(x8, sx, wk, sw),
+                                2 * M * K * N, (x8, sx, w8, sw), ("int8_gemm",))
+        if check:
+            want = int8_matmul.int8_matmul_plain(x8, sx, w8, sw)
+            rec["equal_to_plain"] = bool(torch.equal(got, want))
+            rec["int_mm_ms"] = _mean_ms(lambda: torch._int_mm(x8, w8))
+            del want
+        cases[site] = rec
+        del x, x8, sx, w8, wk, sw, got
         torch.cuda.empty_cache()
     return cases
 
@@ -637,8 +666,8 @@ def main():
     kind.add_argument("--kvq", action="store_true",
                       help="time the decode-attention kernel B8 instead, cold L2")
     kind.add_argument("--int8", action="store_true",
-                      help="time the W8A8 GEMMs B3, B4 and B6 instead, at chip_smoke.py "
-                           "phases 5, 6 and 8's sites")
+                      help="time the W8A8 GEMMs B3, B4, B6 and B9 instead, at chip_smoke.py "
+                           "phases 5, 6, 8 and 10's sites")
     kind.add_argument("--int4", action="store_true",
                       help="time the W4A8 GEMM B7 instead, at chip_smoke.py phase 9's sites "
                            "and at M 8")
@@ -714,11 +743,15 @@ def _gemm_report(kernel, runs, smi):
             "call_tops": first["ops"] / (sum(new) / 2) / 1e9,
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "gemm_over_bound": sum(gemm) / 2 / first["bound_ms"],
-            "bf16_matmul_ms": first["bf16_matmul_ms"],
+            "bf16_matmul_ms": first.get("bf16_matmul_ms"),
+            "int_mm_ms": first.get("int_mm_ms"),
             "baseline_kernels": recs["baseline"][0]["kernels"],
             "change_kernels": first["kernels"],
             "sha256_equal": len(hashes) == 1, "equal_to_plain": first["equal_to_plain"]}
-        title = site if site in {g[0] for g in GATED_SITES} else f"{kernel} {site}"
+        title = site if site in {g[0] for g in GATED_SITES + B9_SITES} else f"{kernel} {site}"
+        yard = (f"torch._int_mm yardstick (int32 product only) {o['int_mm_ms']:.4f}"
+                if o["bf16_matmul_ms"] is None
+                else f"bf16 torch.matmul yardstick {o['bf16_matmul_ms']:.4f}")
         print(f"{title}: call baseline {base[0]:.4f}/{base[1]:.4f} ms, change "
               f"{new[0]:.4f}/{new[1]:.4f} ms ({o['speedup']:.2f}x, {o['call_tops']:.1f} TOP/s); device GEMM "
               "baseline " + "/".join(f"{x:.4f}" for x in o["baseline_gemm_ms"])
@@ -726,7 +759,7 @@ def _gemm_report(kernel, runs, smi):
               + f" ms ({o['gemm_tops']:.1f} TOP/s, {o['gemm_over_bound']:.2f}x the bound "
               f"{o['bound_ms']:.4f} ms, {o['bound_by']}); quantize pass "
               + "/".join(f"{x:.4f}" for x in o["change_quantize_ms"])
-              + f" ms; bf16 torch.matmul yardstick {o['bf16_matmul_ms']:.4f} ms; outputs' "
+              + f" ms; {yard} ms; outputs' "
               f"sha256 {'equal' if o['sha256_equal'] else 'DIFFER'} across trees and runs, "
               f"{'equal' if o['equal_to_plain'] else 'NOT equal'} to the plain version")
     print(smi)

@@ -311,11 +311,9 @@ def main():
     if total_us == 0:
         raise RuntimeError("the profiler recorded no device time")
     busy = total_us / 1e6 / prof_wall
-    # B3's calls ran its wgmma kernel, B4's and B6's the gated wgmma kernel,
-    # and the mma.sync body (int8_gemm_kernel) only B9's calls.
-    int8_calls = {"int8_gemm_wgmma": launches["quantized_matmul"],
-                  smoke.GATED_KERNEL: launches["gated_matmul"] + launches["gated_matmul_pair"],
-                  "int8_gemm_kernel": launches["int8_matmul"]}
+    # B3's and B9's calls ran B3's wgmma kernel, B4's and B6's the gated one.
+    int8_calls = {"int8_gemm_wgmma": launches["quantized_matmul"] + launches["int8_matmul"],
+                  smoke.GATED_KERNEL: launches["gated_matmul"] + launches["gated_matmul_pair"]}
     if any(int8_calls.values()):
         ran = {key: sum(n for name, _, n in rows if key in name) for key in int8_calls}
         if ran != int8_calls:

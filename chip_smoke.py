@@ -75,9 +75,14 @@ nvcc per source, side by side) and then, one line per phase:
    call's time (CUDA events), the GEMM's and the quantize pass's device
    times (torch.profiler, in a worker process) and bf16 ``torch.matmul``
    over the dequantized weight as a yardstick;
-10. B9: int8_matmul on activations quantized per row, at B3's qkv shape, one
-    bf16 ulp; sx rolled by one row must fail; torch._int_mm's time as a
-    yardstick;
+10. B9: int8_matmul, on B3's wgmma kernel with no quantize pass, on
+    activations quantized per row and K-major weights at B3's qkv shape,
+    Qwen2.5-3B's w_down (one int32 sum over K 11,008) and a ragged M of 1100:
+    every output equal to the plain version bit for bit; sx rolled by one
+    row must fail the one-ulp gate and a row-major weight must raise; per
+    site the whole call's time (CUDA events), the GEMM's device time
+    (torch.profiler, in phase 5's worker process, which must see one kernel
+    a call and no quantize pass) and torch._int_mm's time as a yardstick;
 11. ``score_labels`` on a random-init flan-t5-large at full width in bf16
     (its encoder bias table redrawn at std 1), once through the kernel and
     once with plain attention: encoder outputs and label logits, with a
@@ -895,35 +900,71 @@ def phase_int4(gen):
     return rec
 
 
+def _gemm_alone_ms(what, dev, kernel):
+    """The GEMM's device ms of one B9 site of :func:`_gemm_device_times`;
+    raises unless one call ran ``kernel`` and nothing else (no quantize
+    pass)."""
+    kernels = dev["kernels"]
+    if len(kernels) != 1 or kernel not in kernels[0]:
+        raise AssertionError(f"{what}: one call ran {kernels}, not {kernel} alone")
+    return dev["gemm_ms"]
+
+
 def phase_int8_matmul(gen):
-    """B9 at B3's xl qkv shape, on activations quantized per row."""
-    M, K, N = 32 * 640, 2048, 6144
-    x, w8, sw = ab.int8_operands(gen, M, K, N)
-    x8, sx = int8_matmul.quantize_rows(x)
-    got = int8_matmul.int8_matmul(x8, sx, w8, sw)
-    torch.cuda.synchronize()
-    want = int8_matmul.int8_matmul_plain(x8, sx, w8, sw)
-    if not torch.isfinite(got).all() or got.shape != (M, N):
-        raise AssertionError(f"B9: shape {tuple(got.shape)} or not finite")
-    err, bad = _ulp_gate(got, want)
-    if bad:
-        raise AssertionError(f"B9: {bad} elements over one bf16 ulp, max |diff| {err}")
-    ctl = _ulp_gate(got, int8_matmul.int8_matmul_plain(x8, sx.roll(1, 0), w8, sw))[1]
-    if ctl == 0:
-        raise AssertionError("B9: the gate passes sx rolled by one row")
-    ms, plain_ms, runs = _in_turns(lambda: int8_matmul.int8_matmul(x8, sx, w8, sw),
-                                   lambda: int8_matmul.int8_matmul_plain(x8, sx, w8, sw), 3)
-    tops = 2 * M * K * N / (ms * 1e-3) / 1e12
-    bound = _bound(2 * M * K * N, _nbytes(x8, sx, w8, sw, got), H100_INT8_OPS)
-    int_mm = _cuda_ms(lambda: torch._int_mm(x8, w8), iters=10, warmup=2)
-    print(f"[10/{N_PHASES}] B9 int8_matmul vs plain, pre-quantized x8 [{M}, {K}] x "
-          f"[{K}, {N}]: max |diff| {err:.4g} (gate one bf16 ulp); over the gate with sx "
-          f"rolled by one row {ctl} elements; kernel {ms:.4f} ms ({tops:.1f} TOP/s), "
-          f"plain {plain_ms:.4f} ms ({_turns_text(runs)}); bound {bound[0]:.4f} ms "
-          f"({bound[1]}); no one PyTorch call computes it; yardstick for timing only: "
-          f"torch._int_mm (the int32 product alone, no scales) {int_mm:.4f} ms")
-    return _record(err, ms, plain_ms, bound, None, yardstick_ms=int_mm,
-                   yardstick="torch._int_mm, the int32 product without the scales")
+    """B9 at :data:`chip_flash_ab.B9_SITES` on activations quantized per row
+    and K-major weights: equal to the plain version bit for bit, one kernel a
+    call; sx rolled by one row must miss the gate and a row-major weight must
+    raise."""
+    cases, rec = [], None
+    device = _gemm_device_times("int8")
+    for site, M, K, N in ab.B9_SITES:
+        x, w8, sw = ab.int8_operands(gen, M, K, N)
+        x8, sx = int8_matmul.quantize_rows(x)
+        del x
+        w8k = quant.to_kmajor(w8)  # the layout of every int8 leaf
+        if not cases:
+            refused = _refusal("B9", lambda: int8_matmul.int8_matmul(x8, sx, w8, sw))
+        got = int8_matmul.int8_matmul(x8, sx, w8k, sw)
+        torch.cuda.synchronize()
+        want = int8_matmul.int8_matmul_plain(x8, sx, w8, sw)
+        if not torch.isfinite(got).all() or got.shape != (M, N):
+            raise AssertionError(f"{site}: shape {tuple(got.shape)} or not finite")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{site}: {int((got != want).sum())} elements differ from "
+                                 f"the plain version, max |diff| {_ulp_gate(got, want)[0]}")
+        ctl = _ulp_gate(got, int8_matmul.int8_matmul_plain(x8, sx.roll(1, 0), w8, sw))[1]
+        del want
+        if ctl == 0:
+            raise AssertionError(f"{site}: the gate passes sx rolled by one row")
+        ms, plain_ms, runs = _in_turns(lambda: int8_matmul.int8_matmul(x8, sx, w8k, sw),
+                                       lambda: int8_matmul.int8_matmul_plain(x8, sx, w8, sw), 3)
+        gemm = _gemm_alone_ms(site, device[site], B3_KERNEL)
+        ops = 2 * M * K * N
+        bound = _bound(ops, _nbytes(x8, sx, w8, sw, got), H100_INT8_OPS)
+        int_mm = _cuda_ms(lambda: torch._int_mm(x8, w8), iters=10, warmup=2)
+        cases.append(f"{site} [{M}, {K}]x[{K}, {N}]: equal to the plain version; over the "
+                     f"gate with sx rolled by one row {ctl} elements; call {ms:.4f} ms "
+                     f"({ops / ms / 1e9:.1f} TOP/s), plain {plain_ms:.4f} ms "
+                     f"({_turns_text(runs)}); device: GEMM {gemm:.4f} ms "
+                     f"({ops / gemm / 1e9:.1f} TOP/s, {gemm / bound[0]:.2f}x the bound), one "
+                     f"kernel a call, no quantize pass; bound {bound[0]:.4f} ms ({bound[1]}); "
+                     f"torch._int_mm yardstick {int_mm:.4f} ms")
+        if rec is None:
+            rec = _record(0.0, ms, plain_ms, bound, None, gemm_ms=gemm, yardstick_ms=int_mm,
+                          yardstick="torch._int_mm, the int32 product without the scales")
+        del x8, sx, w8, w8k, sw, got
+        torch.cuda.empty_cache()
+    build = _gemm_build_text("int8_fusedq", B3_KERNEL,
+                             int8_matmul._lib().quantized_matmul_smem_bytes())
+    print(f"[10/{N_PHASES}] B9 int8_matmul on B3's kernel ({build}) vs plain, x8 quantized "
+          f"per row, K-major int8 weights (a row-major one raises: {refused!r}); every "
+          f"output equal to the plain version's bit for bit, the control over the gate "
+          f"|diff| <= 2^-7 |want| + 1e-6: " + "; ".join(cases)
+          + "; CUDA events over whole calls, device times from torch.profiler in a worker "
+          "process (chip_flash_ab.py --int8, other operands of the same shapes); no one "
+          "PyTorch call computes it, torch._int_mm (the int32 product alone, no scales) is "
+          "a timing yardstick only")
+    return rec
 
 
 def _key_mask(gen, B, Lq, Lk, layout, pad_row=True):

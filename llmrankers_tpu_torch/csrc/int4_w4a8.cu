@@ -8,7 +8,7 @@
 // where lo4 is the weight of input row gG + r and hi4 that of row
 // gG + G/2 + r, both in [-7, 7]; the group scales sw are f32 [K/G, N]. x is
 // bf16 [M, K], quantized per row and per group exactly as the W8A8 kernels
-// quantize per K-block (int8_mma.cuh), with scales sx [M, K/G].
+// quantize per K-block (int8_quantize.cuh), with scales sx [M, K/G].
 //
 // Layout. The packed leaf [K/2, N] is K-major: an [N, K/2] buffer seen
 // through its transpose (models/quant.py), so column n's packed bytes of
@@ -85,7 +85,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "int8_mma.cuh"    // launch_quantize
+#include "int8_quantize.cuh"  // launch_quantize
 #include "int8_wgmma.cuh"  // mbarriers, TMA, s8 wgmma
 #include "tma_encode.cuh"
 

@@ -1,4 +1,4 @@
-// W8A8 int8 GEMMs with activation quantization in the kernel, for sm_90a.
+// W8A8 int8 GEMMs on wgmma, for sm_90a.
 //
 // Replaces the TPU kernels of llmrankers_tpu/ops/int8_matmul.py:
 //   quantized_matmul (body _kernel_fusedq), B3:
@@ -9,27 +9,26 @@
 //       out = act(h0 * s0) * (h1 * s1), act gelu_new, relu or silu
 //   int8_matmul (body _kernel), B9, on activations quantized by the caller:
 //       out = (float(x8 . w8) * sx) * sw, the int32 sum over all of K
-// x is bf16 [M, K]; it is quantized per row and per K-block of kb columns
-// (kb is the TPU kernel's K-block, computed by the Python wrapper), with the
-// TPU body's arithmetic step for step: scale = max(amax, 1e-8) * f32(1/127),
-// q = clip(rint(x * rcp_rn(scale)), -127, 127). Every f32 step of the fold
-// and the epilogue uses round-to-nearest intrinsics with no contraction into
-// FMA, in the plain version's order, so the kernels and their plain PyTorch
-// versions agree to the last bit wherever the int8 values agree. int8_matmul
-// is the GEMM alone with kb = K: its fold computes 0 + float(acc) * sx, which
-// is float(acc) * sx exactly, and the int32 sum is exact for K <= 133,000.
+// B3, B4 and B6 take x bf16 [M, K] and quantize it per row and per K-block
+// of kb columns (kb is the TPU kernel's K-block, computed by the Python
+// wrapper), with the TPU body's arithmetic step for step: scale = max(amax,
+// 1e-8) * f32(1/127), q = clip(rint(x * rcp_rn(scale)), -127, 127). Every
+// f32 step of the fold and the epilogue uses round-to-nearest intrinsics with
+// no contraction into FMA, in the plain version's order, so the kernels and
+// their plain PyTorch versions agree to the last bit wherever the int8 values
+// agree.
 //
-// Design. Two launches per call (int8_matmul: the GEMM only). (1) One warp
-// per (row, K-block) computes amax, writes the int8 row block to a scratch
-// [M, K] and its scale to [M, K/kb]; the wrapper allocates both. A K-block of
-// 256 to 2048 bf16 per row does not fit a GEMM tile, so amax must be known
-// before the block is quantized; the separate pass reads x once and writes a
-// quarter of its bytes. (2) The GEMM, one of three kernels.
+// Design. B3, B4 and B6 take two launches per call, B9 the second alone.
+// (1) One warp per (row, K-block) computes amax, writes the int8 row block to
+// a scratch [M, K] and its scale to [M, K/kb]; the wrapper allocates both. A
+// K-block of 256 to 2048 bf16 per row does not fit a GEMM tile, so amax must
+// be known before the block is quantized; the separate pass reads x once and
+// writes a quarter of its bytes. (2) The GEMM, one of two kernels.
 //
-// B3, B4 and B6 on wgmma. The weights come K-major, [N, K] buffers
-// (models/quant.py lays every int8 leaf with a column scale out so), because
-// wgmma reads s8 operands from shared memory K-major only. Two kernels share
-// one mainloop, 288 threads a block:
+// The weights come K-major, [N, K] buffers (models/quant.py lays every int8
+// leaf with a column scale out so, and B9's caller passes its weight so),
+// because wgmma reads s8 operands from shared memory K-major only. The two
+// kernels share one mainloop, 288 threads a block:
 // - a producer warp, one of whose threads issues the TMA loads of the A tile
 //   (x8 rows, K-contiguous) and a 128-row B tile (weight rows,
 //   K-contiguous), 128 x 128 bytes each, into a ring of six 32 KB stages
@@ -47,9 +46,9 @@
 // - an epilogue in registers, whose bf16 tile goes to shared memory under
 //   the 128-byte swizzle and leaves by TMA, which drops the rows past M (TMA
 //   also zero-fills them on the way in).
-// B3 (int8_gemm_wgmma_kernel): one block per 128 x 128 output tile, the B
-// tile 128 weight rows in one box; the epilogue applies the column scale and
-// the residual and stores two 64-column panels per warpgroup.
+// B3 and B9 (int8_gemm_wgmma_kernel): one block per 128 x 128 output tile,
+// the B tile 128 weight rows in one box; the epilogue applies the column
+// scale and the residual and stores two 64-column panels per warpgroup.
 // B4 and B6 (int8_gated_wgmma_kernel): one block per 128 rows x 64 output
 // columns. The B tile stacks 64 rows of w0 over the same 64 rows of w1,
 // loaded as two 64-row boxes: the swizzle repeats every 8 rows, so they land
@@ -77,61 +76,38 @@
 // 1 x 2 and 2 x 2 blocks) gained at one shape and lost at the others, so
 // each block loads its own.
 //
-// B9: int8_gemm_kernel, on mma.sync. One block of eight warps per 128 x 128
-// output tile, K in stages of 64 bytes. A (int8 x, K-contiguous) is staged
-// as it is; B (int8 w, [K, N] N-contiguous) is transposed to K-contiguous
-// while it is staged, four k-rows of eight columns at a time with byte
-// permutes, since mma.sync wants B K-major and ldmatrix .trans handles only
-// 16-bit elements. Four neighbouring lanes read one 32-byte sector of a
-// k-row, and they store their transposed columns in rotated order, so the
-// stores of a warp hit 32 distinct banks. Two shared buffers: the next
-// stage's global loads go to registers before the current stage is
-// multiplied and to the other buffer after, one barrier per stage.
-// Shared-memory rows are padded to 80 bytes, so the ldmatrix.x4 fragment
-// reads are free of bank conflicts. The products run on the tensor cores as
-// mma.sync.m16n8k32.s32.s8.s8.s32; each warp owns 64 rows x 32 columns with
-// int32 accumulators that are folded into f32 (times the row scale) at the
-// end of every K-block.
+// B9 is B3's kernel over the caller's x8 with one K-block of K: its entry
+// passes no bf16 x, so launch_wgmma skips the quantize pass, and kb = K
+// makes the mainloop run all K/128 stages into one int32 sum (one stage's
+// products in flight over the whole of K) and fold once at the end. That
+// fold computes 0 + float(acc) * sx, which is float(acc) * sx exactly, and
+// the int32 sum is exact while K * 127^2 < 2^31, for K <= 133,000 (w_down's
+// K of 11,008 reaches 1.78e8).
 //
-// Every body folds in block order with the same f32 steps and applies the
+// Every kernel folds in block order with the same f32 steps and applies the
 // column scale (f32, or bf16 read in place) and the residual in the plain
 // version's order; int32 sums are exact in any order, so each is bit-exact
 // against the plain version.
 //
 // What bounds it. At flan-t5-xl's encoder shapes (M = 20480, K 2048 or
 // 5120, N 2048 to 2 x 5120) and Qwen2.5-3B's (M = 20480, K 2048 or 11008,
-// N 256 to 2 x 11008) the work is bound by the int8 tensor-core rate.
-// mma.sync from registers, one stage of prefetch and one block of eight
-// warps per SM (240 registers a thread) leave most of that rate unused in
-// B9's body; the others feed wgmma by TMA. Later work: B9 on the wgmma
-// mainloop, persistent tiles, and the quantize pass fused into the GEMM.
+// N 256 to 2 x 11008) the work is bound by the int8 tensor-core rate: B9 at
+// B3's qkv shape, [20480, 2048] x [2048, 6144], is 515 G operations, 0.26 ms
+// at 1,979 TOP/s, against 0.09 ms for its 306 MB at 3.35 TB/s. Later work:
+// persistent tiles, and the quantize pass fused into the GEMM.
 #include <cuda.h>  // CUtensorMap; no -lcuda (driver entry point)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "int8_mma.cuh"
+#include "int8_quantize.cuh"
 #include "int8_wgmma.cuh"
 #include "tma_encode.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;   // eight warps: 2 along M x 4 along N
-constexpr int kBM = 128;        // output rows per block
-constexpr int kBN = 128;        // output columns per block
-constexpr int kBK = 64;         // int8 K per stage; every K-block is a multiple
-constexpr int kRow = kBK + 16;  // shared-memory row stride in bytes
 constexpr float kGeluC = (float)0.7978845608028654;
 constexpr float kGeluA = (float)0.044715;
-
-struct GemmParams {
-  const int8_t* x8;           // [M, K]
-  const int8_t* w;            // [K, N]
-  const float* sx;            // [M, K / kb]
-  const float* sw;            // [1, N]
-  __nv_bfloat16* out;         // [M, N]
-  int M, K, N, kb;
-};
 
 // A column scale in f32; a bf16 scale widens exactly, so reading the
 // decoder's bf16 leaves in place gives the bits of their f32 copy.
@@ -158,176 +134,11 @@ __device__ __forceinline__ float activate(int act, float h) {
   return silu(h);
 }
 
-// One K stage in registers, on its way from global to shared memory: two
-// 16-byte pieces of A rows, and four k-rows of eight B columns.
-struct Stage {
-  uint4 a[2];
-  uint2 b[4];
-};
-
-// wcol: this thread's eight B columns in row 0 of the weight.
-__device__ __forceinline__ void load_stage(Stage& st, const GemmParams& p, int m0,
-                                           int k0, int tid, int kg, const int8_t* wcol) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = tid + i * kThreads;
-    const int r = idx / 4, c = (idx % 4) * 16;
-    st.a[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + r < p.M) {
-      st.a[i] = *reinterpret_cast<const uint4*>(p.x8 + (long long)(m0 + r) * p.K + k0 + c);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    st.b[r] = *reinterpret_cast<const uint2*>(wcol + (long long)(k0 + kg * 4 + r) * p.N);
-  }
-}
-
-// A as it is; B transposed to K-contiguous rows.
-__device__ __forceinline__ void store_stage(const Stage& st, int8_t* as, int8_t* bs,
-                                            int tid, int kg, int ng) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = tid + i * kThreads;
-    *reinterpret_cast<uint4*>(as + (idx / 4) * kRow + (idx % 4) * 16) = st.a[i];
-  }
-  uint32_t w[4][2];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    w[r][0] = st.b[r].x;
-    w[r][1] = st.b[r].y;
-  }
-  store_b_transposed(w, bs, kRow, kg, ng);
-}
-
-__global__ void __launch_bounds__(kThreads) int8_gemm_kernel(const GemmParams p) {
-  __shared__ __align__(16) int8_t as[2][kBM * kRow];
-  __shared__ __align__(16) int8_t bs[2][kBN * kRow];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int nk = p.K / p.kb;
-  const int stages = p.K / kBK, per_block = p.kb / kBK;
-
-  // B staging: this thread transposes k-rows 4*kg..4*kg+3 of 8 columns
-  // ng*8..ng*8+7. Four neighbouring lanes read 32 contiguous bytes of a
-  // k-row (one sector); a warp covers 8 k-groups.
-  const int kg = (warp % 2) * 8 + lane / 4, ng = (warp / 2) * 4 + lane % 4;
-  const int8_t* wcol = p.w + n0 + ng * 8;
-
-  float accf[4][4][4];
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        accf[i][j][e] = 0.f;
-        acc[i][j][e] = 0;
-      }
-
-  // Two shared buffers: stage s+1 is loaded into registers before stage s
-  // is multiplied, and stored to the other buffer after, so its global
-  // loads are in flight during the products; one barrier per stage.
-  Stage st;
-  load_stage(st, p, m0, 0, tid, kg, wcol);
-  store_stage(st, as[0], bs[0], tid, kg, ng);
-  __syncthreads();
-  for (int s = 0; s < stages; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < stages) load_stage(st, p, m0, (s + 1) * kBK, tid, kg, wcol);
-
-    // ldmatrix lanes: matrix mi = lane / 8, its row lane % 8.
-    const int mi = lane / 8, mr = lane % 8;
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 32) {
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int j = 0; j < 4; j += 2) {
-        // matrices: tile j k 0-15, tile j k 16-31, tile j+1 k 0-15, k 16-31
-        uint32_t r[4];
-        ldmatrix_x4(r, bs[buf] + (wn * 32 + (j + mi / 2) * 8 + mr) * kRow + ks +
-                           (mi % 2) * 16);
-        bf[j][0] = r[0];
-        bf[j][1] = r[1];
-        bf[j + 1][0] = r[2];
-        bf[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // matrices: rows 0-7 k 0-15, rows 8-15 k 0-15, rows 0-7 k 16-31, ...
-        uint32_t af[4];
-        ldmatrix_x4(af, as[buf] + (wm * 64 + i * 16 + (mi % 2) * 8 + mr) * kRow + ks +
-                            (mi / 2) * 16);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af, bf[j][0], bf[j][1]);
-      }
-    }
-
-    if ((s + 1) % per_block == 0) {
-      // The K-block ends: accf += float(acc) * sx[row, b], then reset acc.
-      const int b = s / per_block;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0 + wm * 64 + i * 16 + g + h * 8;
-          const float sc = row < p.M ? p.sx[(long long)row * nk + b] : 0.f;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              accf[i][j][2 * h + e] = __fadd_rn(
-                  accf[i][j][2 * h + e],
-                  __fmul_rn(__int2float_rn(acc[i][j][2 * h + e]), sc));
-              acc[i][j][2 * h + e] = 0;
-            }
-          }
-        }
-      }
-    }
-
-    if (s + 1 < stages) store_stage(st, as[buf ^ 1], bs[buf ^ 1], tid, kg, ng);
-    __syncthreads();
-  }
-
-  // Epilogue.
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm * 64 + i * 16 + g + h * 8;
-      if (row >= p.M) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + wn * 32 + j * 8 + 2 * t;
-        *reinterpret_cast<__nv_bfloat162*>(p.out + (long long)row * p.N + col) =
-            __floats2bfloat162_rn(__fmul_rn(accf[i][j][2 * h], p.sw[col]),
-                                  __fmul_rn(accf[i][j][2 * h + 1], p.sw[col + 1]));
-      }
-    }
-  }
-}
-
-int launch_gemm(const GemmParams& p, cudaStream_t stream) {
-  if (p.M <= 0 || p.K % 128 || p.N % 128 || p.kb % kBK || p.kb <= 0 || p.K % p.kb) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid(p.N / kBN, (p.M + kBM - 1) / kBM);
-  int8_gemm_kernel<<<grid, kThreads, 0, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ---------------------------------------------------------------------------
-// B3, B4 and B6 on wgmma (see the note at the top)
+// The wgmma kernels (see the note at the top)
 // ---------------------------------------------------------------------------
 constexpr int kWgRows = 128;                      // output rows per block
-constexpr int kWgCols = 128;                      // B3: output columns per block
+constexpr int kWgCols = 128;                      // B3, B9: output columns per block
 constexpr int kGatedCols = 64;                    // B4/B6: output columns per block
 constexpr int kGroupRows = 32;                    // B4/B6: row tiles a block group sweeps
 constexpr int kWgK = 128;                         // int8 K per stage: one swizzle row
@@ -636,10 +447,11 @@ cudaError_t allow_smem(const void* kernel, int slot, int bytes) {
   return err;
 }
 
-// The quantize pass, then a wgmma GEMM: B3 over the K-major weight w0
-// [N, K] when w1 is null, else the gated kernel over w0 and w1, each a
-// buffer of w_rows rows of K (B4: w1 is w0, one [2N, K] buffer; B6: two
-// [N, K] buffers).
+// The quantize pass of x into x8 and sx (none when x is null: B9, whose
+// caller quantized x8 and sx), then a wgmma GEMM over x8: B3's and B9's
+// kernel over the K-major weight w0 [N, K] when w1 is null, else the gated
+// kernel over w0 and w1, each a buffer of w_rows rows of K (B4: w1 is w0,
+// one [2N, K] buffer; B6: two [N, K] buffers).
 int launch_wgmma(const __nv_bfloat16* x, const int8_t* w0, const int8_t* w1, int w_rows,
                  const WgParams& p, int8_t* x8, int K, int kb, cudaStream_t stream) {
   const bool gated = w1 != nullptr;
@@ -668,7 +480,7 @@ int launch_wgmma(const __nv_bfloat16* x, const int8_t* w0, const int8_t* w1, int
                           : allow_smem(reinterpret_cast<const void*>(int8_gemm_wgmma_kernel),
                                        0, kWgSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_quantize(x, x8, const_cast<float*>(p.sx), p.M, K, kb, stream);
+  if (x != nullptr) err = launch_quantize(x, x8, const_cast<float*>(p.sx), p.M, K, kb, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(p.N / cols, (p.M + kWgRows - 1) / kWgRows);  // B3: N tiles fastest
   if (gated) {
@@ -763,19 +575,14 @@ extern "C" int gated_matmul_smem_bytes() { return kGatedSmem; }
 
 // B9: out[M, N] bf16 = (float(x8 @ w8) * sx) * sw on activations the caller
 // quantized: x8 [M, K] int8, sx [M, 1] f32, w8 [K, N] int8, sw [1, N] f32.
-// The GEMM alone, with one K-block of K.
+// w8 is K-major, as B3's: it points at an [N, K] buffer, row n holding
+// column n's K weights. B3's kernel with no quantize pass and one K-block of
+// K. Return codes as for quantized_matmul_bf16.
 extern "C" int int8_matmul_bf16(const void* x8, const void* sx, const void* w8,
                                 const void* sw, void* out, int M, int K, int N,
                                 void* stream) {
-  GemmParams p;
-  p.x8 = static_cast<const int8_t*>(x8);
-  p.w = static_cast<const int8_t*>(w8);
-  p.sx = static_cast<const float*>(sx);
-  p.sw = static_cast<const float*>(sw);
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.M = M;
-  p.K = K;
-  p.N = N;
-  p.kb = K;
-  return launch_gemm(p, static_cast<cudaStream_t>(stream));
+  const WgParams p = wg_params(sx, sw, out, M, K, N, K);
+  return launch_wgmma(nullptr, static_cast<const int8_t*>(w8), nullptr, N, p,
+                      static_cast<int8_t*>(const_cast<void*>(x8)), K, K,
+                      static_cast<cudaStream_t>(stream));
 }

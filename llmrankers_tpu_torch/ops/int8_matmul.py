@@ -16,10 +16,10 @@ over all of K.
 
 On a CUDA tensor :func:`quantized_matmul`, :func:`gated_matmul`,
 :func:`gated_matmul_pair` and :func:`int8_matmul` launch the hand-written
-kernels of ``csrc/int8_fusedq.cu`` (bf16 x, ``sm_90a``) or raise;
-:func:`quantized_matmul` (B3), :func:`gated_matmul` (B4) and
-:func:`gated_matmul_pair` (B6), on ``wgmma``, take their weights K-major
-(:func:`check_kmajor`), :func:`int8_matmul` (B9) row-major and contiguous.
+``wgmma`` kernels of ``csrc/int8_fusedq.cu`` (``sm_90a``) or raise; all four
+take their weights K-major (:func:`check_kmajor`): :func:`quantized_matmul`
+(B3) and :func:`int8_matmul` (B9) run one kernel, :func:`gated_matmul` (B4)
+and :func:`gated_matmul_pair` (B6) the other.
 On a CPU tensor they run the plain versions, which compute the same numbers
 step by step: the same quantized int8 values, exact integer sums (taken in
 float64, exact below 2^53), the same f32 fold order.
@@ -250,8 +250,8 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> Non
 
 def check_kmajor(name: str, w: torch.Tensor, K: int, N: int, device=None) -> None:
     """Raise unless ``w`` is the K-major int8 ``[K, N]`` weight that B3's,
-    B4's and B6's kernels load by TMA (or B7's packed int4 leaf, with ``K/2``
-    rows): an ``[N, K]`` buffer seen through its transpose (stride
+    B4's, B6's and B9's kernels load by TMA (or B7's packed int4 leaf, with
+    ``K/2`` rows): an ``[N, K]`` buffer seen through its transpose (stride
     ``(1, K)``, ``models/quant.py::to_kmajor``) with a 16-byte-aligned base,
     on ``device`` when one is given. A row-major weight is refused, not
     copied."""
@@ -277,10 +277,14 @@ def _check_scale(name: str, s: torch.Tensor, N: int, device) -> int:
     return bf16
 
 
-def _check_x(fn: str, x: torch.Tensor, K: int, N: int) -> torch.Tensor:
-    """x as the kernel's [M, K] view, or raise."""
+def _check_cuda(fn: str, x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: no kernel for device {x.device}")
+
+
+def _check_x(fn: str, x: torch.Tensor, K: int, N: int) -> torch.Tensor:
+    """x as the kernel's [M, K] view, or raise."""
+    _check_cuda(fn, x)
     if K % 128 or N % 128:
         raise ValueError(f"{fn}: K and N must be multiples of 128, got {K}x{N}")
     if not x.is_contiguous():
@@ -463,29 +467,32 @@ gated_matmul_pair.launches = 0
 def int8_matmul(
     x8: torch.Tensor,  # [M, K] int8
     sx: torch.Tensor,  # [M, 1] f32 row scales
-    w8: torch.Tensor,  # [K, N] int8
+    w8: torch.Tensor,  # [K, N] int8, K-major on the card
     sw: torch.Tensor,  # [1, N] f32 column scales
     out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """W8A8 on activations already quantized (:func:`quantize_rows`):
     ``(float(x8 @ w8) * sx) * sw``, ``[M, N]`` in ``out_dtype``. CPU tensors
-    take :func:`int8_matmul_plain`; CUDA tensors launch the GEMM of
-    ``csrc/int8_fusedq.cu`` with one K-block of K (bf16 output only) and add
-    one to ``int8_matmul.launches``. The JAX package has no caller of it on
-    its serving paths."""
+    take :func:`int8_matmul_plain`, which reads ``w8`` in either layout;
+    CUDA tensors launch B3's wgmma kernel of ``csrc/int8_fusedq.cu`` with no
+    quantize pass and one K-block of K (bf16 output only) and add one to
+    ``int8_matmul.launches``. What the kernel does not take raises: K or N
+    not a multiple of 128, x8, sx or sw other than contiguous, a weight that
+    is not K-major (:func:`check_kmajor`; a row-major one is refused, not
+    copied), tensors off x8's device, unaligned base pointers. The JAX
+    package has no caller of it on its serving paths."""
     if x8.device.type == "cpu":
         return int8_matmul_plain(x8, sx, w8, sw, out_dtype)
     M, K = x8.shape
     N = w8.shape[1]
-    if x8.device.type != "cuda":
-        raise ValueError(f"int8_matmul: no kernel for device {x8.device}")
+    _check_cuda("int8_matmul", x8)
     if out_dtype != torch.bfloat16:
         raise ValueError(f"int8_matmul: the kernel writes bfloat16, not {out_dtype}")
     if K % 128 or N % 128:
         raise ValueError(f"int8_matmul: K and N must be multiples of 128, got {K}x{N}")
     _check("x8", x8, torch.int8, (M, K), x8.device)
     _check("sx", sx, torch.float32, (M, 1), x8.device)
-    _check("w8", w8, torch.int8, (K, N), x8.device)
+    check_kmajor("w8", w8, K, N, x8.device)
     _check("sw", sw, torch.float32, (1, N), x8.device)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x8.device)
     if M == 0:
@@ -495,8 +502,7 @@ def int8_matmul(
         stream = torch.cuda.current_stream(x8.device).cuda_stream
         rc = lib.int8_matmul_bf16(x8.data_ptr(), sx.data_ptr(), w8.data_ptr(), sw.data_ptr(),
                                   out.data_ptr(), M, K, N, stream)
-    if rc != 0:
-        raise RuntimeError(f"int8_fusedq int8_matmul launch failed: CUDA error {rc}")
+    _raise_rc("int8_matmul", rc)
     int8_matmul.launches += 1
     return out
 

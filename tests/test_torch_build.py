@@ -53,14 +53,16 @@ def _source(*names):
 
 def test_int8_source_has_its_entry_points():
     """The W8A8 kernels are one hand-written source with four C entry points
-    (B3, B4, B6, B9) on int8 tensor-core tiles from the shared headers."""
+    (B3, B4, B6, B9) on int8 wgmma, with the quantize pass from the shared
+    header; no Ampere-era mma.sync is left in either."""
     src = _source("int8_fusedq.cu")
     for entry in ("quantized_matmul_bf16", "gated_matmul_bf16", "gated_matmul_pair_bf16",
                   "int8_matmul_bf16"):
         assert f'extern "C" int {entry}(' in src
-    assert '#include "int8_mma.cuh"' in src
-    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in _source("int8_mma.cuh")
-    assert "cublas" not in (src + _source("int8_mma.cuh")).lower()
+    assert '#include "int8_quantize.cuh"' in src
+    assert "quantize_blocks_kernel" in _source("int8_quantize.cuh")
+    assert "mma.sync" not in src + _source("int8_quantize.cuh")
+    assert "cublas" not in (src + _source("int8_quantize.cuh")).lower()
 
 
 def test_b3_runs_on_a_wgmma_kernel_fed_by_tma():
@@ -71,7 +73,7 @@ def test_b3_runs_on_a_wgmma_kernel_fed_by_tma():
     steps, the output tile stored by TMA; the role branch on a warp index
     broadcast from lane 0 and the wait loop inside one asm block (a
     divergent path makes ptxas serialise the wgmmas); B4's and B6's entries
-    reach the same launcher, and only B9 stays on the mma.sync kernel."""
+    reach the same launcher, and B9's too."""
     src = _source("int8_fusedq.cu")
     hdr = _source("int8_wgmma.cuh")
     for inc in ('#include "int8_wgmma.cuh"', '#include "tma_encode.cuh"'):
@@ -99,8 +101,34 @@ def test_b3_runs_on_a_wgmma_kernel_fed_by_tma():
         rest = src.split(f'extern "C" int {entry}(')[1].split('extern "C"')[0]
         assert "launch_wgmma(" in rest and "launch_gemm(" not in rest
     b9 = src.split('extern "C" int int8_matmul_bf16(')[1]
-    assert "launch_gemm(" in b9 and "launch_wgmma(" not in b9
-    assert src.count("__global__") == 3  # B9's mma.sync body, B3's and the gated kernel
+    assert "launch_wgmma(" in b9 and "launch_gemm(" not in b9
+    assert src.count("__global__") == 2  # B3's (B9's too) and the gated kernel
+
+
+def test_b9_runs_on_b3s_wgmma_kernel():
+    """B9's entry reaches B3's launcher with no bf16 x, so no quantize pass
+    runs, one K-block of K (kb = K: all K/128 stages into one int32 sum, one
+    fold) and its K-major weight as B3's single B map; the launcher skips
+    the quantize pass only when x is null. Nothing of the mma.sync body is
+    left under csrc/."""
+    src = _source("int8_fusedq.cu")
+    b9 = src.split('extern "C" int int8_matmul_bf16(')[1].split("\n}\n")[0]
+    assert "wg_params(sx, sw, out, M, K, N, K);" in b9  # nk 1, per_block K / 128
+    assert "launch_wgmma(nullptr, static_cast<const int8_t*>(w8), nullptr, N, p," in b9
+    assert "K, K," in b9 and "launch_quantize" not in b9
+    launcher = src.split("int launch_wgmma(")[1].split("\n}\n")[0]
+    assert "if (x != nullptr) err = launch_quantize(" in launcher
+    assert launcher.count("launch_quantize(") == 1
+    for entry in ("quantized_matmul_bf16", "gated_matmul_bf16", "gated_matmul_pair_bf16"):
+        rest = src.split(f'extern "C" int {entry}(')[1].split("\n}\n")[0]
+        assert "launch_wgmma(static_cast<const __nv_bfloat16*>(x)," in rest, entry
+    assert src.count("__global__") == 2
+    every = _source(*sorted(n for n in os.listdir(_build.CSRC_DIR)
+                            if n.endswith((".cu", ".cuh"))))
+    for gone in ("mma_s8", "ldmatrix", "store_b_transposed", "int8_gemm_kernel",
+                 "launch_gemm", "GemmParams"):
+        assert gone not in every, gone
+    assert not os.path.exists(os.path.join(_build.CSRC_DIR, "int8_mma.cuh"))
 
 
 def test_b4_b6_run_on_one_gated_wgmma_kernel():
@@ -155,7 +183,7 @@ def test_int4_source_has_its_entry_point():
     and the exact 1/16 in the fold."""
     src = _source("int4_w4a8.cu")
     assert 'extern "C" int quantized_matmul_int4_bf16(' in src
-    assert '#include "int8_mma.cuh"' in src
+    assert '#include "int8_quantize.cuh"' in src
     assert "0xF0F0F0F0u" in src and "0x80808080u" in src and "0.0625f" in src
     assert "cublas" not in src.lower() and "_int_mm" not in src
 
@@ -188,7 +216,7 @@ def test_b7_runs_on_a_wgmma_kernel_fed_by_tma():
     assert "__fmul_rn(__int2float_rn(acc[q]), 0.0625f)" in body
     for gone in ("mma_s8(", "ldmatrix", "store_b_transposed", "p.z", "acc[2]"):
         assert gone not in src, gone
-    assert "int* z" not in _source("int8_mma.cuh")  # no zero-point sums
+    assert "int* z" not in _source("int8_quantize.cuh")  # no zero-point sums
     desc = _source("int8_wgmma.cuh").split("uint64_t desc_k64(")[1].split("\n}\n")[0]
     assert "512 >> 4" in desc and "(2) << 62" in desc  # 8 rows of 64 B; 64-byte swizzle
 
@@ -213,7 +241,7 @@ def test_build_key_follows_the_shared_header(tmp_path, monkeypatch):
         (tmp_path / name).write_bytes(open(os.path.join(_build.CSRC_DIR, name), "rb").read())
     monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
     key = _build._digest()
-    (tmp_path / "int8_mma.cuh").write_text("// changed\n")
+    (tmp_path / "int8_quantize.cuh").write_text("// changed\n")
     assert _build._digest() != key
 
 

@@ -135,8 +135,8 @@ def test_prompt_packs_equal_their_originals(name):
 
 def test_package_data_covers_the_port_files():
     """Every kernel source and header and every prompt pack ships with the
-    package (the shared header ``csrc/int8_mma.cuh`` was once left out, so an
-    installed port could not build its int8 kernels)."""
+    package (the shared header ``csrc/int8_quantize.cuh`` was once left out,
+    so an installed port could not build its int8 kernels)."""
     import fnmatch
     import tomllib
 

@@ -329,6 +329,54 @@ def test_int8_matmul_plain_matches_jax(out_dtype):
                                               torch.from_numpy(sw), out_dtype), want, out_dtype)
 
 
+@pytest.mark.parametrize("K", [1024, 4352])
+def test_int8_matmul_plain_gives_the_same_bits_on_a_kmajor_weight(K):
+    """B9's weight is K-major on the card (an [N, K] buffer seen as [K, N]);
+    the plain version reads that view as it lies and gives the bits it gives
+    on the row-major weight, and those of the JAX kernel in f32. At K 4352
+    the JAX kernel sums in int32 over 17 K-blocks of 256 (its ``bk_cap`` of
+    2048 divides no larger 128-multiple of 4352) and the port's one sum over
+    all of K must still equal it bit for bit."""
+    rng = np.random.RandomState(7)
+    M, N = 64, 256
+    x = _activations(rng, M, K)
+    x8, sx = tint8.quantize_rows(torch.from_numpy(x))
+    w8, sw = map(torch.from_numpy, _int8_weight(rng, K, N))
+    wk = tquant.to_kmajor(w8)
+    assert wk.stride() == (1, K) and torch.equal(wk, w8)
+    if K > 2048:
+        assert K // jint8._largest_divisor(K, 2048) > 1
+    want = np.asarray(jint8.int8_matmul(*(jnp.asarray(t.numpy()) for t in (x8, sx, w8, sw)),
+                                        out_dtype=jnp.float32, interpret=True))
+    got = tint8.int8_matmul_plain(x8, sx, wk, sw, torch.float32)
+    assert torch.equal(got, tint8.int8_matmul_plain(x8, sx, w8, sw, torch.float32))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(tint8.int8_matmul(x8, sx, wk, sw),
+                       tint8.int8_matmul_plain(x8, sx, w8, sw))
+
+
+def test_int8_matmul_refuses_a_row_major_weight(monkeypatch):
+    """Past the device check (meta tensors stand in for the card's), B9's
+    wrapper takes its weight K-major, as B3's kernel loads it by TMA, and
+    refuses a row-major one, naming the layout, before anything is built or
+    launched."""
+    M, K, N = 16, 256, 128
+
+    def build():
+        raise RuntimeError("build")
+
+    monkeypatch.setattr(tint8, "_check_cuda", lambda fn, x: None)
+    monkeypatch.setattr(tint8, "_lib", build)
+    x8 = torch.empty(M, K, dtype=torch.int8, device="meta")
+    sx = torch.empty(M, 1, dtype=torch.float32, device="meta")
+    sw = torch.empty(1, N, dtype=torch.float32, device="meta")
+    w8 = torch.empty(K, N, dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match=r"K-major.*row-major"):
+        tint8.int8_matmul(x8, sx, w8, sw)
+    with pytest.raises(RuntimeError, match="build"):
+        tint8.int8_matmul(x8, sx, w8.t().contiguous().t(), sw)
+
+
 def test_pair_and_int8_matmul_wrappers_on_cpu():
     rng = np.random.RandomState(5)
     x = torch.from_numpy(_activations(rng, 24, 256)).reshape(2, 12, 256)
