@@ -141,14 +141,34 @@ nvcc per source, side by side) and then, one line per phase:
     quantized weights, as the hidden-state gates; every token the plain
     argmax or within 0.25 of it), ms per decode step, peak memory, and
     the decode-M (8) times of bf16, W8A16 and B7 at Qwen2.5-3B's sites;
-24. Rank-R1 setwise end to end through ``cli.run.main`` on
+24. slot refill on that Qwen2.5-3B: 24 rows of the generate phase's shape
+    (rows 12 and 13 on prompts of their own), 8 rows per dispatch, 128 new
+    tokens in chunks of 32, with bf16 weights and int8 KV and with int4
+    weights and int4 KV, stop strings picked from a probe run of the
+    dispatch route (a tokenizer that spells every id) so that rows finish at
+    different chunk boundaries; the dispatch route (``LLMRANKERS_NO_REFILL=1``)
+    and the refill session in turns (host walls, generated tokens/s);
+    refills and prefix-KV hits, ``rr_refill_pre`` and the left-padded
+    ``rr_refill`` run, B8 launched layers x steps of ``dec_chunk_rr``, B5
+    launched inside the refill prefills; each row's tokens equal the
+    dispatch route's up to its first step whose teacher-forced top-2 margin
+    is within LOGIT_TOL; B8 held against its plain version on one decode
+    step's layer-0 operands captured after the left-padded refill (both
+    layouts, per-row write positions, stale K/V behind refilled rows), also
+    with a refilled row's query aimed at its first key, where that row's
+    mask one key tile late must miss the gate;
+25. prompt-lookup speculative decoding (K 4) on the generate phase's 8 rows
+    in the same two modes, against the step route in turns: the accept rate
+    (tokens a round), walls, and the tokens held by the same margin rule;
+26. Rank-R1 setwise end to end through ``cli.run.main`` on
     ``random:qwen2.5-3b`` with ``--kv_quantize int8`` and
     ``prompt_setwise-R1.toml``, 2 queries x 20 passages, num_child 19, k 1,
     128 completion tokens, counting B8's launches;
-25. prints a JSON line of the nine kernels (with each one's bound on this
+27. prints a JSON line of the nine kernels (with each one's bound on this
     card and the one-call PyTorch time where there is one; B6, B7 and B9
     carry a timing yardstick instead, and B9, which no path calls, is marked
-    standalone), then ``{"ok": true, "device": ...}``.
+    standalone; B8 with its launches in the generate and refill phases),
+    then ``{"ok": true, "device": ...}``.
 
 Any failed check raises and the exit code is not 0. Without a CUDA GPU it
 exits with an error before printing anything. It imports nothing of JAX or of
@@ -187,7 +207,7 @@ from llmrankers_tpu_torch.rankers.setwise import SetwiseLlmRanker  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
-N_PHASES = 25
+N_PHASES = 27
 SOURCES = ("flash_blhd", "int8_fusedq", "int4_w4a8", "kvq_decode")
 KERNEL_TOL = 0.05  # bf16 flash kernel vs plain, max |diff| on rows with a valid key
 # Label logits through 24+24 bf16 layers, kernel vs plain: each layer's
@@ -1548,7 +1568,7 @@ def _gen_T():
             + GEN_NEW)
 
 
-R1_PROMPT = 3540  # Rank-R1 setwise prompts (phase 24), tokens
+R1_PROMPT = 3540  # Rank-R1 setwise prompts (phase 26), tokens
 
 
 def _r1_T():
@@ -1900,6 +1920,375 @@ def phase_generate(n, cfg, model):
     return b8_launches
 
 
+REFILL_ROWS, REFILL_CAP, REFILL_CHUNK = 24, 8, 32
+UNSHARED = (12, 13)  # rows on prompts of their own: one refill batch, left-padded
+SPEC_K = 4
+SERVING_MODES = ((None, "int8"), ("int4", "int4"))  # (weights, KV) of phases 24 and 25
+
+
+class IdTokenizer(ByteTokenizer):
+    """The byte tokenizer with every id spelled ``<id>`` (pad and EOS left
+    out): random weights emit ids above the bytes almost always, and a stop
+    string ``<id>`` then fires on one token."""
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(f"<{i}>" for i in ids
+                       if not (skip_special_tokens and i in (self.pad_id, self.eos_id)))
+
+
+def _refill_rows():
+    """The refill phase's 24 rows in ``_gen_rows``' shape: a shared
+    1200-token prefix and 640-token suffixes, except rows 12 and 13, 1840
+    tokens of their own. They form one refill batch that extends none of the
+    session's prefixes, so it is prefilled left-padded beside rows of the
+    shared layout (prefix, suffix, hole)."""
+    rng = np.random.RandomState(930)
+    pre = rng.randint(2, 30000, GEN_PREFIX).tolist()
+    rows = [pre + rng.randint(2, 30000, GEN_SUFFIX).tolist() for _ in range(REFILL_ROWS)]
+    for i in UNSHARED:
+        rows[i] = rng.randint(2, 30000, GEN_PREFIX + GEN_SUFFIX).tolist()
+    return rows
+
+
+def _drive(engine, rows, stop, refill):
+    """One ``generate`` of ``rows`` (GEN_NEW tokens in chunks of REFILL_CHUNK)
+    on the refill session or, with ``LLMRANKERS_NO_REFILL=1``, the dispatch
+    route, the counts set to 0 just before and read just after: (token
+    matrix [n, GEN_NEW], token counts, host wall s, launches, programs)."""
+    mats, orig = [], (engine._generate_refill, engine._generate_dispatch)
+
+    def keep(fn):
+        def run(*a, **kw):
+            mats.append(fn(*a, **kw))
+            return mats[-1]
+        return run
+
+    engine._generate_refill, engine._generate_dispatch = map(keep, orig)
+    if refill:
+        os.environ.pop("LLMRANKERS_NO_REFILL", None)
+    else:
+        os.environ["LLMRANKERS_NO_REFILL"] = "1"
+    try:
+        torch.cuda.synchronize()
+        engine.programs.clear()
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        tic = time.perf_counter()
+        texts, ntoks = engine.generate(rows, max_new_tokens=GEN_NEW,
+                                       chunk_tokens=REFILL_CHUNK, stop_strings=stop)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+    finally:
+        os.environ.pop("LLMRANKERS_NO_REFILL", None)
+        del engine._generate_refill, engine._generate_dispatch
+    launches = {k: fn.launches for k, fn in COUNTERS.items()}
+    ids = np.concatenate(mats)
+    if len(texts) != len(rows) or ids.shape != (len(rows), GEN_NEW) or not sum(ntoks):
+        raise AssertionError(f"generate gave {len(texts)} texts, tokens {ids.shape}, "
+                             f"counts {ntoks}")
+    return ids, ntoks, wall, launches, dict(engine.programs)
+
+
+def _pick_stops(ids, most=4):
+    """Stop strings (``<id>`` of a token) from a probe run's tokens, picked
+    greedily so that rows finish at as many different chunk boundaries
+    before the last as the tokens allow: (stops, finishing chunk per row,
+    None for the budget)."""
+    chunk = REFILL_CHUNK
+    n_chunks = GEN_NEW // chunk
+    first = [{} for _ in ids]
+    for r, row in enumerate(ids.tolist()):
+        for i, t in enumerate(row):
+            first[r].setdefault(t, i)
+
+    def finish(stops):
+        out = []
+        for r in range(len(ids)):
+            hits = [first[r][t] // chunk for t in stops if t in first[r]]
+            c = min(hits) if hits else None
+            out.append(c if c is not None and c < n_chunks - 1 else None)
+        return out
+
+    def score(stops):
+        f = [c for c in finish(stops) if c is not None]
+        return len(set(f)), -abs(len(f) - len(ids) // 2)
+
+    stops = []
+    cands = {t for row in ids.tolist() for t in row}
+    for _ in range(most):
+        best = max(cands - set(stops), key=lambda t: score(stops + [t]), default=None)
+        if best is None or score(stops + [best]) <= score(stops):
+            break
+        stops.append(best)
+    return [f"<{t}>" for t in stops], finish(stops)
+
+
+def _forced_margins(engine, rows, tokens):
+    """Top-2 logit margins [n, S] of the steps that pick ``tokens[:, i]``:
+    the prefill's for i 0, then the decode steps that consume ``tokens[:, i -
+    1]``, teacher-forced on a left-padded cache with the engine's kernels."""
+    model = engine.model
+    S = tokens.shape[1]
+    out = []
+    for i0 in range(0, len(rows), GEN_BATCH):
+        sub = rows[i0:i0 + GEN_BATCH]
+        ids, mask, _, _ = engine._pad_batch(sub, left=True, b_cap=len(sub))
+        logits, (kc, vc, kmask, pos) = generate.decoder_prefill(
+            model, *engine._to_device(ids, mask), S, kv_quant=engine.cfg.kv_quant)
+        L = ids.shape[1]
+        tok = torch.from_numpy(tokens[i0:i0 + GEN_BATCH]).cuda()
+        margins = []
+        for i in range(S):
+            top = logits.float().topk(2, dim=-1).values
+            margins.append(top[:, 0] - top[:, 1])
+            if i == S - 1:
+                break
+            cos, sin = model.rope(pos[:, None], generate._act_dtype(model))
+            logits, kn, vn = generate._decode_token_forward(model, tok[:, i], kc, vc, kmask,
+                                                            cos, sin)
+            generate._cache_put(kc, kn[:, :, :, None, :], L + i)
+            generate._cache_put(vc, vn[:, :, :, None, :], L + i)
+            kmask[:, L + i] = True
+            pos = pos + 1
+        out.append(torch.stack(margins, dim=1).cpu().numpy())
+        del kc, vc
+    return np.concatenate(out)
+
+
+def _margin_rule(engine, rows, ref, got, what):
+    """Each row's tokens must equal the reference route's up to its first
+    divergence, and the routes may diverge only where the teacher-forced
+    top-2 logit margin (the reference's tokens before it forced, so both
+    routes had that context) is within LOGIT_TOL: a divergence at a clear
+    margin fails. Returns a summary."""
+    div = {}
+    for i in range(len(rows)):
+        d = np.nonzero(ref[i] != got[i])[0]
+        if d.size:
+            div[i] = int(d[0])
+    if not div:
+        return f"{what}: all {len(rows)} rows token-equal"
+    idx = sorted(div)
+    with torch.inference_mode():
+        margins = _forced_margins(engine, [rows[i] for i in idx],
+                                  ref[idx, :max(div.values()) + 1])
+    at = [(i, div[i], float(margins[j, div[i]])) for j, i in enumerate(idx)]
+    bad = [x for x in at if not x[2] <= LOGIT_TOL]
+    if bad:
+        raise AssertionError(f"{what}: rows diverge at a clear margin (row, step, margin): "
+                             f"{bad}")
+    return (f"{what}: {len(rows) - len(idx)} of {len(rows)} rows token-equal, {len(idx)} "
+            f"diverge at a near tie (row, step, margin <= {LOGIT_TOL}): "
+            + ", ".join(f"({i}, {d}, {m:.3g})" for i, d, m in at))
+
+
+def _dequant_keys(kc, mode, b):
+    """Row b's cached keys, dequantized to f32 [KV, T, Dh]."""
+    if mode == "int4":
+        lo, hi = kvq_attention.unpack4(kc[0][b], torch.float32)
+        return torch.cat([lo * kc[1][b][..., :1], hi * kc[1][b][..., 1:]], dim=-1)
+    return kc[0][b].float() * kc[1][b]
+
+
+def _b8_on_session(ops, mode):
+    """B8 on one decode step's layer-0 operands captured from a live refill
+    session, just after the left-padded refill: the mix of layouts, per-row
+    write positions and the stale K/V behind refilled rows are checked to be
+    there; kernel against plain within KERNEL_TOL, as captured and with a
+    refilled row's query aimed at its first valid key; that row's mask one
+    key tile later must miss the gate."""
+    qg, kc, vc, kn, vn, amask = ops
+    B, T = amask.shape
+    P = T - GEN_NEW
+    scale = qg.shape[-1]**-0.5
+    plain = kvq_attention.kvq_decode_attention_plain
+    kern = kvq_attention.kvq_decode_attention
+    err = (kern(*ops, scale, mode) - plain(*ops, scale, mode)).abs().max().item()
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"B8 on a live refill session's operands ({mode}): max |diff| "
+                             f"{err} > {KERNEL_TOL}")
+    m = amask.cpu()
+    left = [b for b in range(B) if not m[b, 0] and m[b, P - 1]]
+    hole = [b for b in range(B) if m[b, 0] and not m[b, P - 1]]
+    decoded = m[:, P:].sum(dim=1).tolist()
+    stale = [b for b in left if decoded[b] == 0 and bool(kc[0][b, :, P:].ne(0).any())]
+    if not (left and hole and stale and len(set(decoded)) > 1):
+        raise AssertionError(f"captured step lacks the mix: left-padded rows {left}, rows "
+                             f"with a hole {hole}, refilled rows with stale K/V {stale}, "
+                             f"decoded per row {decoded}")
+    b = stale[0]
+    t0 = int(m[b].nonzero()[0])
+    k0 = _dequant_keys(kc, mode, b)[:, t0]  # [KV, Dh]
+    qa = qg.clone()
+    qa[b] = (k0 * (30.0 / scale) / k0.pow(2).sum(-1, keepdim=True))[:, None].to(qg.dtype)
+    aimed = (qa, kc, vc, kn, vn, amask, scale, mode)
+    want = plain(*aimed)
+    err_aimed = (kern(*aimed) - want).abs().max().item()
+    if not err_aimed <= KERNEL_TOL:
+        raise AssertionError(f"B8, aimed query on a live session ({mode}): max |diff| "
+                             f"{err_aimed} > {KERNEL_TOL}")
+    shifted = amask.clone()
+    shifted[b] = amask[b].roll(kvq_attention.TILE)
+    ctl = (kern(qa, kc, vc, kn, vn, shifted, scale, mode) - want).abs().max().item()
+    if not ctl > KERNEL_TOL:
+        raise AssertionError(f"B8 gate {KERNEL_TOL} passes row {b}'s mask one tile late "
+                             f"({ctl})")
+    return (f"B8 on a live step's layer-0 operands (rows left-padded {left}, with a hole "
+            f"{hole}, decoded per row {decoded}, stale K/V behind refilled rows {stale}): "
+            f"max |diff| {err:.4g}, with row {b}'s query aimed at its first key (t {t0}) "
+            f"{err_aimed:.4g}; control, that row's mask one tile late: {ctl:.4g}")
+
+
+def phase_refill(n, cfg, model):
+    """Slot refill on Qwen2.5-3B: 24 rows through one session of 8 slots, 128
+    new tokens in chunks of 32 with stop strings picked from a probe run,
+    bf16 weights with int8 KV and int4 weights with int4 KV, against the
+    dispatch route in turns; B8 held on a live step's operands."""
+    tic0 = time.perf_counter()
+    rows = _refill_rows()
+    tok = IdTokenizer(cfg.vocab_size)
+    layers = cfg.num_hidden_layers
+    parts, refill_launches = [], {}
+    # The refill calls, to count B5's launches inside them, and the first
+    # decode step after the left-padded refill, to capture B8's operands.
+    inside, cap = {"flash": 0, "depth": 0}, {}
+    real = {name: getattr(generate, name) for name in (
+        "decoder_refill_slots", "decoder_refill_slots_pre", "decoder_refill_slots_shared",
+        "kvq_decode_attention")}
+
+    def counted(name):
+        def run(*a, **kw):
+            inside["depth"] += 1
+            before = flash.flash_mha.launches
+            try:
+                return real[name](*a, **kw)
+            finally:
+                inside["depth"] -= 1
+                if not inside["depth"]:
+                    inside["flash"] += flash.flash_mha.launches - before
+                if name == "decoder_refill_slots" and "ops" not in cap:
+                    cap["armed"] = True
+        return run
+
+    def capture(qg, kc, vc, kn, vn, amask, scale, mode):
+        if cap.pop("armed", False):
+            cap["ops"] = (qg.clone(), tuple(x.clone() for x in kc),
+                          tuple(x.clone() for x in vc), kn.clone(), vn.clone(), amask.clone())
+        return real["kvq_decode_attention"](qg, kc, vc, kn, vn, amask, scale, mode)
+
+    for quantize, kvq in SERVING_MODES:
+        label = f"{quantize or 'bf16'} weights, {kvq} KV"
+        engine = ScoringEngine("decoder", cfg, model, tok, quantize=quantize, kv_quantize=kvq)
+        engine._gen_row_limit = lambda rows_, max_new: REFILL_CAP
+        probe = _drive(engine, rows, (), refill=False)[0]
+        stops, fin = _pick_stops(probe)
+        runs = {}
+        for turn, refill in enumerate((False, True, True, False)):
+            if turn == 1:
+                for name in real:
+                    setattr(generate, name, capture if name == "kvq_decode_attention"
+                            else counted(name))
+                inside["flash"] = 0
+                cap.clear()
+            try:
+                runs.setdefault(refill, []).append(_drive(engine, rows, stops, refill))
+                if turn == 1:
+                    stats = dict(engine.refill_stats)
+            finally:
+                for name, fn in real.items():
+                    setattr(generate, name, fn)
+        ids_d, nt_d, _, launch_d, prog_d = runs[False][0]
+        ids_r, nt_r, _, launches, programs = runs[True][0]
+        if not (stats["refills"] >= 1 and stats["prefix_kv_hits"] >= 1
+                and programs.get("rr_refill_pre") and programs.get("rr_refill")):
+            raise AssertionError(f"{label}: refill stats {stats}, programs {programs}")
+        want_b8 = layers * REFILL_CHUNK * programs["dec_chunk_rr"]
+        if launches["kvq_decode_attention"] != want_b8:
+            raise AssertionError(f"{label}: {launches['kvq_decode_attention']} B8 launches, "
+                                 f"want {want_b8} (layers x steps of dec_chunk_rr)")
+        if not inside["flash"]:
+            raise AssertionError(f"{label}: B5 never launched in a refill prefill")
+        if quantize == "int4" and not launches["quantized_matmul_int4"]:
+            raise AssertionError(f"{label}: B7 never launched: {launches}")
+        if "ops" not in cap:
+            raise AssertionError(f"{label}: no decode step after the left-padded refill")
+        b8_text = _b8_on_session(cap.pop("ops"), kvq)
+        rule = [_margin_rule(engine, rows, ids_d, r[0], f"refill run {i + 1} vs dispatch")
+                for i, r in enumerate(runs[True])]
+        refill_launches[label] = launches["kvq_decode_attention"]
+        walls = {k: [r[2] for r in v] for k, v in runs.items()}
+        tps = {k: [sum(r[1]) / r[2] for r in v] for k, v in runs.items()}
+        parts.append(
+            f"{label}: stop strings {stops} (finishing chunk per row on the probe "
+            f"{fin}); walls in turns dispatch {walls[False][0]:.3f} s, refill "
+            f"{walls[True][0]:.3f} s, refill {walls[True][1]:.3f} s, dispatch "
+            f"{walls[False][1]:.3f} s; generated tokens/s (prefills included) dispatch "
+            + "/".join(f"{x:.1f}" for x in tps[False]) + ", refill "
+            + "/".join(f"{x:.1f}" for x in tps[True])
+            + f" ({sum(nt_r)} and {sum(nt_d)} tokens); refill stats {stats}; programs "
+            f"{programs} (dispatch route {prog_d}); launches "
+            + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+            + f" (B8 = {layers} x {REFILL_CHUNK} x {programs['dec_chunk_rr']}; B5 in "
+            f"refill prefills {inside['flash']}); dispatch route launches "
+            + ", ".join(f"{k} {v}" for k, v in launch_d.items() if v)
+            + "; " + "; ".join(rule) + "; " + b8_text)
+        del engine
+        torch.cuda.empty_cache()
+    print(f"[{n}/{N_PHASES}] slot refill, Qwen2.5-3B random init, {REFILL_ROWS} rows (shared "
+          f"prefix {GEN_PREFIX} + suffix {GEN_SUFFIX}; rows {list(UNSHARED)} on prompts of "
+          f"their own), {REFILL_CAP} rows per dispatch, {GEN_NEW} new tokens greedy in chunks "
+          f"of {REFILL_CHUNK} (host clock; margin tol {LOGIT_TOL}, kernel tol {KERNEL_TOL}): "
+          + " | ".join(parts) + f" ({time.perf_counter() - tic0:.1f} s)")
+    return refill_launches
+
+
+def phase_spec(n, cfg, model):
+    """Prompt-lookup speculative decoding (K 4) on Qwen2.5-3B at the generate
+    phase's shape (8 rows, shared prefix 1200 + suffix 640, 128 new tokens
+    in chunks of 32), bf16 weights with int8 KV and int4 weights with int4
+    KV, against the step route in turns; tokens held by the margin rule."""
+    tic0 = time.perf_counter()
+    rows = _gen_rows()
+    tok = IdTokenizer(cfg.vocab_size)
+    stop = ("</answer>",)
+    parts = []
+    for quantize, kvq in SERVING_MODES:
+        label = f"{quantize or 'bf16'} weights, {kvq} KV"
+        step = ScoringEngine("decoder", cfg, model, tok, quantize=quantize, kv_quantize=kvq)
+        spec = ScoringEngine("decoder", cfg, model, tok, quantize=quantize, kv_quantize=kvq,
+                             spec_lookup=SPEC_K)
+        _drive(spec, rows[:2], stop, refill=False)  # warm-up
+        runs = {}
+        for which in ("step", "spec", "spec", "step"):
+            eng = spec if which == "spec" else step
+            before = dict(eng.spec_stats)
+            runs.setdefault(which, []).append(_drive(eng, rows, stop, refill=False)
+                                              + ({k: eng.spec_stats[k] - before[k]
+                                                  for k in before},))
+        ids_s, _, _, launches, programs, st = runs["spec"][0]
+        if not programs.get("dec_spec_chunk") or not st["rounds"]:
+            raise AssertionError(f"{label}: spec route ran {programs}, stats {st}")
+        if quantize == "int4" and not launches["quantized_matmul_int4"]:
+            raise AssertionError(f"{label}: B7 never launched: {launches}")
+        ids_p = runs["step"][0][0]
+        rule = [_margin_rule(step, rows, ids_p, r[0], f"spec run {i + 1} vs step")
+                for i, r in enumerate(runs["spec"])]
+        walls = {k: [r[2] for r in v] for k, v in runs.items()}
+        parts.append(
+            f"{label}: accept rate {st['tokens']} tokens / {st['rounds']} rounds = "
+            f"{st['tokens'] / st['rounds']:.3f} tokens a round; walls in turns step "
+            f"{walls['step'][0]:.3f} s, spec {walls['spec'][0]:.3f} s, spec "
+            f"{walls['spec'][1]:.3f} s, step {walls['step'][1]:.3f} s; programs {programs}; "
+            f"launches " + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+            + "; " + "; ".join(rule))
+        del step, spec
+        torch.cuda.empty_cache()
+    print(f"[{n}/{N_PHASES}] speculative decoding, prompt lookup K {SPEC_K}, Qwen2.5-3B "
+          f"random init, batch {GEN_BATCH}, shared prefix {GEN_PREFIX} + suffix {GEN_SUFFIX}, "
+          f"{GEN_NEW} new tokens in chunks of {REFILL_CHUNK} (host clock; margin tol "
+          f"{LOGIT_TOL}): " + " | ".join(parts) + f" ({time.perf_counter() - tic0:.1f} s)")
+
+
 def _write_r1_inputs(n_queries=2, n_docs=20):
     os.makedirs(SCRATCH, exist_ok=True)
     paths = {n: os.path.join(SCRATCH, "r1_" + n) for n in ("q.tsv", "c.jsonl", "run.txt",
@@ -2022,11 +2411,15 @@ def main():
     b8 = phase_kvq(torch.Generator(device="cuda").manual_seed(2))
     torch.cuda.empty_cache()
     gen_launches = phase_generate(23, qwen, model)
+    torch.cuda.empty_cache()
+    refill_launches = phase_refill(24, qwen, model)
+    torch.cuda.empty_cache()
+    phase_spec(25, qwen, model)
     del model
     torch.cuda.empty_cache()
-    r1_launches = phase_rank_r1(24)
+    r1_launches = phase_rank_r1(26)
     csrc, ops = "llmrankers_tpu_torch/csrc/", "llmrankers_tpu/ops/"
-    print(f"[25/{N_PHASES}] kernels and result:")
+    print(f"[27/{N_PHASES}] kernels and result:")
     print(json.dumps({"kernels": [
         _kernel_entry("flash_mha_blhd", csrc + "flash_blhd.cu", ops + "flash.py:373",
                       bf16_launches["flash_mha_blhd"], b1),
@@ -2048,7 +2441,7 @@ def main():
                       0, b9, standalone=True),
         _kernel_entry("kvq_decode_attention", csrc + "kvq_decode.cu",
                       ops + "kvq_attention.py:167", r1_launches["kvq_decode_attention"], b8,
-                      generate_launches=gen_launches),
+                      generate_launches=gen_launches, refill_launches=refill_launches),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

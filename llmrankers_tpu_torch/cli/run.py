@@ -283,7 +283,6 @@ def _check_ported(args) -> None:
     unported = [
         (r.openai_key, "--openai_key (API rankers)", "A6"),
         (r.awq_calib_file, "--awq_calib_file", "A9 (AWQ)"),
-        (r.spec_lookup, "--spec_lookup", "A8(b)"),
         (r.lora_path_or_name, "--lora_path_or_name", "A10"),
         (r.tensor_parallel > 1 or r.data_parallel > 1,
          "--tensor_parallel/--data_parallel", "A13"),
@@ -337,6 +336,7 @@ def make_engine(run_args):
         extra["max_batch_tokens"] = run_args.max_batch_tokens
     return ScoringEngine(kind, cfg, model, tok, device=device,
                          quantize=run_args.quantize, kv_quantize=run_args.kv_quantize,
+                         spec_lookup=run_args.spec_lookup,
                          prefix_cache_mb=run_args.prefix_cache_mb, **extra)
 
 

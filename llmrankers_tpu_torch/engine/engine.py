@@ -36,9 +36,15 @@ the rows whose caches fit (``_gen_row_limit``, halved and remembered on a
 device OOM); each dispatch prefills its rows, left-padded (``dec_prefill``)
 or on shared prefixes (``dec_prefill_shared``, or ``dec_prefill_pre`` on the
 prefix-KV cache), and decodes in one go (``dec_gen*``) or in chunks
-(``dec_chunk``) with a host check for stop strings between chunks. Slot
-refill and speculative decoding are not ported (ROADMAP A8(b)): where the JAX
-engine would refill slots, the port runs the dispatches one after another.
+(``dec_chunk``) with a host check for stop strings between chunks. A wave
+that needs several dispatches and is chunked runs instead as one slot-refill
+session (continuous batching, ``_generate_refill``; ``LLMRANKERS_NO_REFILL=1``
+turns it off, as in JAX): finished rows' slots are prefilled again from
+pending rows at chunk boundaries (``rr_refill``, ``rr_refill_shared``, or
+``rr_refill_pre`` on the session's prefix K/V) and every row decodes at its
+own write position (``dec_chunk_rr``). With ``spec_lookup`` = K > 0 the
+decode is prompt-lookup speculative (``dec_spec_chunk``): K drafts from the
+row's own history, verified in one (K+1)-token forward, greedy only.
 
 The rest of the JAX engine raises ``NotImplementedError`` naming the ROADMAP
 item that ports it. The host modules come from the port's own copies
@@ -49,6 +55,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
+import os
 import sys
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -89,6 +96,22 @@ def _bucket(n: int, ladder: Sequence[int]) -> int:
     return -(-n // 512) * 512
 
 
+def _spec_stitch(row: List[int], outs: np.ndarray, counts: np.ndarray, max_new: int
+                 ) -> Tuple[int, int]:
+    """Append one row's speculative rounds (``outs`` [rounds, K+1],
+    ``counts`` [rounds]) to ``row``. Returns the accept-rate stats' share:
+    (tokens the budget keeps, rounds that kept any)."""
+    tokens = rounds = 0
+    for out, cnt in zip(outs, counts.tolist()):
+        if not cnt:
+            continue
+        kept = min(cnt, max(0, max_new - len(row)))
+        if kept:
+            tokens, rounds = tokens + kept, rounds + 1
+        row.extend(out[:cnt].tolist())
+    return tokens, rounds
+
+
 class ScoringEngine:
     """One T5 or decoder-only model + tokenizer on one torch device."""
 
@@ -104,7 +127,7 @@ class ScoringEngine:
         max_batch_tokens: int = 2**17,
         quantize: Optional[str] = None,  # None | 'int8' | 'int4' (weights)
         kv_quantize: Optional[str] = None,  # None | 'int8' | 'int4' (decoder KV)
-        spec_lookup: int = 0,  # not ported (speculative decoding)
+        spec_lookup: int = 0,  # draft length of prompt-lookup speculation (0: off)
         prefix_share: bool = True,  # share prompt-prefix KV (decoder kind)
         # Cross-wave prefix-KV cache budget (decoder kind): unique prompt
         # prefixes' per-layer K/V kept on device across calls, so a sort's
@@ -132,11 +155,8 @@ class ScoringEngine:
                 raise ValueError("quantized KV cache targets decoder models")
             if kv_quantize == "int4" and cfg.head_dim_ % 2:
                 raise ValueError("int4 KV cache needs an even head_dim")
-        if spec_lookup:
-            if kind != "decoder":
-                raise ValueError("spec_lookup targets decoder generation")
-            raise NotImplementedError(
-                "speculative decoding (spec_lookup) is not ported yet (ROADMAP A8(b))")
+        if spec_lookup and kind != "decoder":
+            raise ValueError("spec_lookup targets decoder generation")
         if awq_calib and quantize is not None:
             if kind != "decoder":
                 raise ValueError("awq_calib targets decoder models")
@@ -201,6 +221,13 @@ class ScoringEngine:
         self.pkv_stats = {"hits": 0, "misses": 0, "evictions": 0}
         # Dispatches by the JAX engine's program name.
         self.programs: "collections.Counter[str]" = collections.Counter()
+        self.spec_lookup = int(spec_lookup)
+        # Over the engine's lifetime: speculative tokens kept and the rounds
+        # that kept any (accept rate = tokens / rounds); slot-refill
+        # sessions, their refill batches and those on the session's prefix
+        # K/V.
+        self.spec_stats = {"tokens": 0, "rounds": 0}
+        self.refill_stats = {"sessions": 0, "refills": 0, "prefix_kv_hits": 0}
         # Rows per generate dispatch learned from device OOMs, by (kind,
         # padded length, max_new_tokens).
         self._learned_row_caps: Dict[Any, int] = {}
@@ -325,13 +352,17 @@ class ScoringEngine:
     def _to_device(self, *arrays: np.ndarray) -> Tuple[torch.Tensor, ...]:
         return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
 
-    def _group(self, chunk: List[List[int]], b_cap: Optional[int] = None):
+    def _group(self, chunk: List[List[int]], b_cap: Optional[int] = None,
+               l_total: Optional[int] = None):
         """Shared-prefix grouping of a chunk (decoder kind only).
 
-        Returns (n, device args (pids, pmask, gidx, sids, smask), the unique
-        prefixes' token lists) when sharing pays off, else None. Rows keep
-        their original order; only the prefix compute is deduplicated.
-        ``b_cap`` bounds the suffix batch (memory-capped generate chunks)."""
+        Returns (n, device args (pids, pmask, gidx, sids, smask), host info
+        (the unique prefixes' token lists, padded prefix and suffix
+        lengths)) when sharing pays off, else None. Rows keep their original
+        order; only the prefix compute is deduplicated. ``b_cap`` bounds the
+        suffix batch (memory-capped generate chunks); ``l_total`` pins the
+        padded prefix plus suffix length to that many positions (a refill
+        session's prompt area), and None is returned where they do not fit."""
         if not self.prefix_share:
             return None
         grp = prefix_mod.group_shared_prefixes(chunk)
@@ -344,12 +375,25 @@ class ScoringEngine:
         cap = self._ctx_cap()
         if cap and any(len(pre_rows[g]) + len(s) > cap for g, s in zip(gidx, suf_rows)):
             return None
+        l_pre = l_suf = None
+        if l_total is not None:
+            # A ladder rung for the prefix, or its exact length where the
+            # rung leaves the suffixes too little of the total.
+            pre_max = max((len(p) for p in pre_rows), default=0)
+            suf_max = max(len(r) for r in suf_rows)
+            l_pre = _bucket(max(pre_max, 1), self.len_buckets)
+            if l_pre + suf_max > l_total:
+                l_pre = max(pre_max, 1)
+            l_suf = l_total - l_pre
+            if l_suf < suf_max or l_suf < 1:
+                return None
         # The prefix batch is the true group count, not a batch bucket.
-        pids, pmask, _, _ = self._pad_batch(pre_rows, b_cap=len(pre_rows))
-        sids, smask, n, B = self._pad_batch(suf_rows, b_cap=b_cap)
+        pids, pmask, _, _ = self._pad_batch(pre_rows, b_cap=len(pre_rows), l_force=l_pre)
+        sids, smask, n, B = self._pad_batch(suf_rows, b_cap=b_cap, l_force=l_suf)
         gvec = np.zeros((B,), np.int64)
         gvec[: len(gidx)] = gidx
-        return n, self._to_device(pids, pmask, gvec, sids, smask), pre_rows
+        return (n, self._to_device(pids, pmask, gvec, sids, smask),
+                (pre_rows, pids.shape[1], sids.shape[1]))
 
     def _pkv_assemble(self, pre_rows: List[List[int]], Lp: int):
         """Cross-wave prefix-KV cache lookup and fill for one wave.
@@ -380,23 +424,8 @@ class ScoringEngine:
             self.programs["prefix_kv"] += 1
             ks_m, vs_m = gen_mod.decoder_prefix_kv(self.model, *self._to_device(mids, mmask))
             for j, g in enumerate(misses):
-                # Stored at the true length (>= 1 so an empty singleton
-                # prefix stays indexable; its pmask row is all 0, so the
-                # value is never attended), as copies that own their bytes.
-                Lr = max(1, len(pre_rows[g]))
-                ek = ks_m[:, j, :, :Lr, :].clone()
-                ev = vs_m[:, j, :, :Lr, :].clone()
-                got[g] = (ek, ev)
-                nbytes = ek.numel() * ek.element_size() * 2
-                old = self._pkv.pop(keys[g], None)
-                if old is not None:
-                    self._pkv_bytes -= old[2]
-                self._pkv[keys[g]] = (ek, ev, nbytes)
-                self._pkv_bytes += nbytes
-            while self._pkv_bytes > self._pkv_budget and self._pkv:
-                _, (_, _, eb) = self._pkv.popitem(last=False)
-                self._pkv_bytes -= eb
-                self.pkv_stats["evictions"] += 1
+                got[g] = self._pkv_put(keys[g], ks_m[:, j], vs_m[:, j])
+            self._pkv_evict()
         ks_list, vs_list = [], []
         for g in range(len(pre_rows)):
             ek, ev = got[g]
@@ -404,6 +433,42 @@ class ScoringEngine:
             ks_list.append(F.pad(ek, pad))
             vs_list.append(F.pad(ev, pad))
         return torch.stack(ks_list, dim=1), torch.stack(vs_list, dim=1)
+
+    def _pkv_put(self, key: Tuple[int, ...], k: torch.Tensor, v: torch.Tensor):
+        """Store one prefix's K/V [Ld, KV, Lp, Dh] in the prefix cache at its
+        true length (>= 1 so an empty singleton prefix stays indexable; its
+        pmask row is all 0, so the value is never attended), as copies that
+        own their bytes. Returns them."""
+        Lr = max(1, len(key))
+        ek, ev = k[:, :, :Lr, :].clone(), v[:, :, :Lr, :].clone()
+        old = self._pkv.pop(key, None)
+        if old is not None:
+            self._pkv_bytes -= old[2]
+        nbytes = ek.numel() * ek.element_size() * 2
+        self._pkv[key] = (ek, ev, nbytes)
+        self._pkv_bytes += nbytes
+        return ek, ev
+
+    def _pkv_evict(self) -> None:
+        """Drop the least recently used entries down to the byte budget."""
+        while self._pkv_bytes > self._pkv_budget and self._pkv:
+            _, (_, _, eb) = self._pkv.popitem(last=False)
+            self._pkv_bytes -= eb
+            self.pkv_stats["evictions"] += 1
+
+    def _pkv_insert(self, pre_rows: List[List[int]], ks: torch.Tensor, vs: torch.Tensor
+                    ) -> None:
+        """Seed the cross-wave prefix cache with prefix K/V a refill session
+        computed anyway ([Ld, G, KV, Lp, Dh]), so the next wave of the same
+        sort starts from a hit."""
+        if self._pkv_budget <= 0:
+            return
+        for g, p in enumerate(pre_rows):
+            if tuple(p) in self._pkv:
+                self._pkv.move_to_end(tuple(p))
+            else:
+                self._pkv_put(tuple(p), ks[:, g], vs[:, g])
+        self._pkv_evict()
 
     # ------------------------------------------------------------------
     # Programs (the JAX engine's jitted programs, run eagerly)
@@ -482,8 +547,8 @@ class ScoringEngine:
                     ids, mask, n, _ = self._pad_batch(chunk, left=True)
                     res = self._dec_labels(ids, mask, labels)
                 else:
-                    n, args, pre_rows = grp
-                    pre = self._pkv_assemble(pre_rows, args[0].shape[1])
+                    n, args, host = grp
+                    pre = self._pkv_assemble(host[0], args[0].shape[1])
                     if pre is None:
                         res = self._dec_labels_shared(*args, labels)
                     else:
@@ -515,17 +580,26 @@ class ScoringEngine:
         ``temperature > 0`` samples each token from softmax(logits /
         temperature) (``seed`` keys the stream: one per dispatch chunk, by
         its row offset, and one per global step, so chunking does not change
-        it; the samples are not JAX's). ``stop_strings`` cut the decoded
+        it; in a slot-refill session one stream for the first tokens, one
+        for the decode steps, by the session's step, and one per refill
+        batch; the samples are not JAX's, and the same seed gives the same
+        tokens on the same route). Sampling with ``spec_lookup`` raises, its
+        acceptance being greedy. ``stop_strings`` cut the decoded
         text; with ``chunk_tokens`` below the budget (256 by default for
         budgets of 512 or more) decoding runs in chunks, and between chunks
         the host freezes rows whose text holds a stop string or EOS, and
-        stops once every row is frozen."""
+        stops once every row is frozen. A chunked wave of several dispatches
+        runs as one slot-refill session (``_generate_refill``) unless
+        ``LLMRANKERS_NO_REFILL=1``."""
         if self.kind != "decoder":
             raise NotImplementedError("T5 generation is not ported yet (ROADMAP A6)")
         if adapter is not None or row_adapters is not None:
             raise NotImplementedError("LoRA adapters are not ported yet (ROADMAP A10)")
         sampling = None
         if temperature and temperature > 0.0:
+            if self.spec_lookup:
+                raise ValueError("temperature sampling is incompatible with "
+                                 "spec_lookup (speculative acceptance is greedy)")
             sampling = (float(temperature), 0 if seed is None else int(seed))
         results: List[str] = [""] * len(prompt_rows)
         ntokens: List[int] = [0] * len(prompt_rows)
@@ -566,10 +640,31 @@ class ScoringEngine:
                         text = text[: cut + len(stop)]
                 results[off + i] = text
 
-        # Where the JAX engine would run a slot-refill session (several
-        # dispatches, chunked), the port runs the dispatches in turn
-        # (ROADMAP A8(b)).
         queue = list(self._chunks(prompt_rows, row_limit))
+        # Several dispatches, chunked: one slot-refill session serves them
+        # all, finished rows' slots prefilled again from pending rows at
+        # chunk boundaries. A device OOM halves the rows per dispatch and
+        # runs the whole session again.
+        if (len(queue) > 1 and chunk_tokens and chunk_tokens < max_new_tokens
+                and os.environ.get("LLMRANKERS_NO_REFILL") != "1"):
+            with torch.inference_mode():
+                while True:
+                    try:
+                        toks = self._generate_refill(prompt_rows, max_new_tokens,
+                                                     stop_strings, chunk_tokens, row_limit,
+                                                     sampling=sampling)
+                        break
+                    except Exception as e:
+                        if row_limit <= 1 or not _is_oom(e):
+                            raise
+                        row_limit = self._halve_cap(row_limit)
+                        self._learned_row_caps[cap_key] = row_limit
+                        logger.warning(
+                            "device OOM in refill session (L=%d max_new=%d); backing off "
+                            "to %d rows/dispatch", L_key, max_new_tokens, row_limit)
+                        torch.cuda.empty_cache()
+            emit(0, toks)
+            return results, ntokens
         with torch.inference_mode():
             while queue:
                 off, chunk = queue.pop(0)
@@ -605,14 +700,18 @@ class ScoringEngine:
         retry the chunk smaller. ``sampling`` is (temperature, seed)."""
         chunked = bool(chunk_tokens) and chunk_tokens < max_new_tokens or sampling is not None
         kvq = self.cfg.kv_quant
+        spec = self.spec_lookup > 0
+        # Speculation pads the cache so that a verify block crossing the
+        # budget, and frozen rows' block writes after it, stay in bounds.
+        mn_pad = max_new_tokens + 2 * (self.spec_lookup + 1) if spec else max_new_tokens
         grp = self._group(chunk, b_cap=row_limit)
         if grp is not None:
-            n, (pids, pmask, gidx, sids, smask), pre_rows = grp
+            n, (pids, pmask, gidx, sids, smask), host = grp
             B = sids.shape[0]
             prompt_len = pids.shape[1] + sids.shape[1]
             # Cross-wave prefix cache: cache-assembled prefix K/V instead of
             # the prefix forward (the *_pre programs).
-            pre = self._pkv_assemble(pre_rows, pids.shape[1])
+            pre = self._pkv_assemble(host[0], pids.shape[1])
             if pre is not None:
                 ks, vs = pre
                 suffix = "_pre"
@@ -621,15 +720,23 @@ class ScoringEngine:
                 suffix = "_shared"
             last_h, cache = gen_mod.decoder_shared_prefill(
                 self.model, ks.index_select(1, gidx), vs.index_select(1, gidx),
-                pmask.index_select(0, gidx), sids, smask, max_new_tokens, kv_quant=kvq)
+                pmask.index_select(0, gidx), sids, smask, mn_pad, kv_quant=kvq)
             logits = self.model.lm_logits(last_h)
+            hist_args = ("shared", (pids, pmask, gidx, sids, smask))
         else:
             ids, mask, n, B = self._pad_batch(chunk, left=True, b_cap=row_limit)
             prompt_len = ids.shape[1]
-            logits, cache = gen_mod.decoder_prefill(
-                self.model, *self._to_device(ids, mask), max_new_tokens, kv_quant=kvq)
+            ids, mask = self._to_device(ids, mask)
+            logits, cache = gen_mod.decoder_prefill(self.model, ids, mask, mn_pad, kv_quant=kvq)
             suffix = ""
+            hist_args = ("plain", (ids, mask))
         eos = int(self.cfg.eos_token_id)
+        if spec:
+            self.programs["dec_prefill" + suffix] += 1
+            hist = self._spec_history(*hist_args, prompt_len + mn_pad)
+            return self._decode_spec_chunked(torch.argmax(logits, dim=-1), cache, hist, B,
+                                             prompt_len, n, max_new_tokens, chunk_tokens or 256,
+                                             stop_strings)
         if chunked:
             self.programs["dec_prefill" + suffix] += 1
             k_pref = k_dec = None
@@ -694,6 +801,289 @@ class ScoringEngine:
             out = np.pad(out, ((0, 0), (0, max_new_tokens - out.shape[1])),
                          constant_values=self.tokenizer.pad_id)
         return out[:n]
+
+    # ------------------------------------------------------------------
+    # Slot refill (continuous batching) and speculative decoding
+    # ------------------------------------------------------------------
+    def _spec_history(self, kind: str, args, width: int) -> torch.Tensor:
+        """A speculative batch's token history [rows, width], laid out like
+        its cache: the left-padded ids, or each row's padded prefix then its
+        suffix area; pad after the prompt."""
+        if kind == "shared":
+            pids, _, gidx, sids, _ = args
+            prompt = torch.cat([pids.index_select(0, gidx), sids], dim=1)
+        else:
+            prompt = args[0]
+        hist = torch.full((prompt.shape[0], width), self.tokenizer.pad_id, dtype=torch.long,
+                          device=self.device)
+        hist[:, :prompt.shape[1]] = prompt
+        return hist
+
+    def _rr_prep(self, batch: List[List[int]], b_cap: int, P: int):
+        """Pad a batch to a refill session's layout, a prompt area of exactly
+        ``P`` positions: shared prefixes where they pay and fit, else left
+        padding. Returns (kind, device args, n real rows, host info or
+        None)."""
+        grp = self._group(batch, b_cap=b_cap, l_total=P)
+        if grp is not None:
+            n, args, host = grp
+            return "shared", args, n, host
+        ids, mask, n, _ = self._pad_batch(batch, left=True, b_cap=b_cap, l_force=P)
+        return "plain", self._to_device(ids, mask), n, None
+
+    def _rr_prep_pre(self, batch: List[List[int]], n_real: int, Br: int, host):
+        """Lay a refill batch out against the session's prefix K/V: every
+        real row must extend one of the session's unique prefixes (the
+        longest that matches; an empty prefix takes any row whose suffix
+        fits whole). Returns device (gidx, sids, smask), or None when a row
+        matches none. Rows past ``n_real`` are padding: group 0, a pad
+        suffix, and a slot out of range, so their result is dropped."""
+        pre_rows, _, Ls = host
+        order = sorted(range(len(pre_rows)), key=lambda g: -len(pre_rows[g]))
+        gidx = np.zeros((Br,), np.int64)
+        sufs: List[List[int]] = []
+        for j, row in enumerate(batch[:n_real]):
+            g = next((gi for gi in order
+                      if len(pre_rows[gi]) < len(row) <= len(pre_rows[gi]) + Ls
+                      and row[:len(pre_rows[gi])] == pre_rows[gi]), None)
+            if g is None:
+                return None
+            gidx[j] = g
+            sufs.append(row[len(pre_rows[g]):])
+        sufs += [[self.tokenizer.pad_id]] * (Br - n_real)
+        sids, smask, _, _ = self._pad_batch(sufs, b_cap=Br, l_force=Ls)
+        return self._to_device(gidx, sids, smask)
+
+    def _generate_refill(self, rows: List[List[int]], max_new: int,
+                         stop_strings: Sequence[str], chunk_tokens: int, row_limit: int,
+                         sampling=None) -> np.ndarray:
+        """A slot-refill (continuous batching) session over a wave of
+        several dispatches, the JAX ``_generate_refill``.
+
+        One fixed-shape session (B slots, prompt area P, cache P + max_new,
+        plus 2(K+1) slots of slack under speculation) serves all rows: the
+        first chunk of ``_chunks`` prefills into the slots, and at each
+        ``chunk_tokens`` boundary the slots whose row finished (EOS or a
+        spent budget on the device, a stop string or the tokenizer's EOS on
+        the host) are prefilled again from the pending rows, in batches of
+        Br = B // 4 (at least 1) rows, once that many slots are free or no
+        row is live. Each row decodes at its own write position with a full
+        budget. When the session started on shared prefixes, a refill
+        batch whose rows extend them runs only its suffixes on the
+        session's prefix K/V (``rr_refill_pre``); others prefill whole
+        (``rr_refill_shared`` or ``rr_refill``). The loop reads the finished
+        slots back at every chunk boundary.
+
+        Where the arithmetic is exact (f32 on the CPU) the tokens are the
+        per-chunk route's; in bf16 a refill batch's prefill runs at Br rows,
+        not the dispatch's B, and another GEMM algorithm may flip a near-tie
+        argmax. ``sampling`` is (temperature, seed): the first tokens, the
+        decode steps (by the session's step) and each refill batch sample
+        their own streams of ``_fold(seed, ...)``.
+
+        Returns the emitted-token matrix [len(rows), max_new], pad after
+        each row's end, as the per-chunk route."""
+        N = len(rows)
+        pad_tok = self.tokenizer.pad_id
+        max_len = max(len(r) for r in rows)
+        P = self._cap_len(_bucket(max_len, self.len_buckets), max_len)
+        first = next(self._chunks(rows, row_limit))[1]
+        K = self.spec_lookup
+        spec = K > 0
+        mn_pad = max_new + 2 * (K + 1) if spec else max_new
+        kvq = self.cfg.kv_quant
+        eos = int(self.cfg.eos_token_id)
+        temperature, k_pref, k_dec, k_ref = 0.0, None, None, None
+        if sampling is not None:
+            temperature = sampling[0]
+            k_pref, k_dec, k_ref = (gen_mod._fold(sampling[1], i) for i in range(3))
+        kind0, args0, n0, sess_host = self._rr_prep(first, row_limit, P)
+        sess_kv = None  # (ks, vs, pmask, pids): the session's prefix K/V
+        if kind0 == "shared":
+            pids, pmask, gidx, sids, smask = args0
+            B = sids.shape[0]
+            pre = self._pkv_assemble(sess_host[0], pids.shape[1])
+            if pre is not None:
+                ks, vs = pre
+                self.programs["dec_prefill_pre"] += 1
+            else:
+                ks, vs = gen_mod.decoder_prefix_kv(self.model, pids, pmask)
+                self.programs["rr_prefill_shared"] += 1
+                self._pkv_insert(sess_host[0], ks, vs)
+            last_h, cache = gen_mod.decoder_shared_prefill(
+                self.model, ks.index_select(1, gidx), vs.index_select(1, gidx),
+                pmask.index_select(0, gidx), sids, smask, mn_pad, kv_quant=kvq)
+            tok = gen_mod._pick(self.model.lm_logits(last_h), temperature, k_pref)
+            # Kept for the session: refill rows that extend these prefixes
+            # run only their suffixes.
+            sess_kv = (ks, vs, pmask, pids)
+        else:
+            ids, mask = args0
+            B = ids.shape[0]
+            self.programs["dec_prefill"] += 1
+            logits, cache = gen_mod.decoder_prefill(self.model, ids, mask, mn_pad, kv_quant=kvq)
+            tok = gen_mod._pick(logits, temperature, k_pref)
+        pending = list(range(n0, N))
+        Br = min(B, max(1, B // 4))
+        wp = torch.full((B,), P, dtype=torch.long, device=self.device)
+        done_np = np.zeros((B,), bool)
+        done_np[n0:] = True  # padding rows are free slots from the start
+        done = torch.from_numpy(done_np).to(self.device)
+        hist = None
+        if spec:
+            rounds = max(1, chunk_tokens // (K + 1))
+            hist = self._spec_history(kind0, args0, P + mn_pad)
+        out_mat = np.full((N, max_new), int(self.cfg.pad_token_id), np.int64)
+        acc: List[List[int]] = [[] for _ in range(B)]
+        slot_rows: List[Optional[int]] = [i if i < n0 else None for i in range(B)]
+        live, refills, pre_hits, spec_tokens, spec_rounds, chunk_no = n0, 0, 0, 0, 0, 0
+        while True:
+            chunk_no += 1
+            if spec:
+                self.programs["dec_spec_chunk"] += 1
+                outs, counts, (tok, cache, hist, wp, done) = gen_mod.decoder_spec_decode_chunk(
+                    self.model, tok, cache, hist, wp, P, max_new, rounds, K, eos, done=done)
+                out_h, cnt_h = outs.cpu().numpy(), counts.cpu().numpy()
+            else:
+                self.programs["dec_chunk_rr"] += 1
+                out, (tok, cache, wp, done) = gen_mod.decoder_decode_chunk_rr(
+                    self.model, tok, cache, wp, P, max_new, chunk_tokens, eos, done,
+                    temperature=temperature, key=k_dec, step0=chunk_no * chunk_tokens)
+                out_h = out.cpu().numpy()
+            done_np, wp_h = done.cpu().numpy().copy(), wp.cpu().numpy()
+            host_froze = False
+            finished: List[int] = []
+            for s in range(B):
+                if slot_rows[s] is None:
+                    continue
+                if spec:
+                    kept = _spec_stitch(acc[s], out_h[s], cnt_h[s], max_new)
+                    spec_tokens, spec_rounds = spec_tokens + kept[0], spec_rounds + kept[1]
+                else:
+                    acc[s].extend(out_h[s].tolist())
+                fin = bool(done_np[s]) or int(wp_h[s]) - P >= max_new
+                # The device freezes on the model's EOS; the host on the
+                # tokenizer's where it differs, and on stop strings.
+                if (not fin and self.tokenizer.eos_id != eos
+                        and self.tokenizer.eos_id in acc[s][:max_new]):
+                    fin = host_froze = done_np[s] = True
+                if not fin and stop_strings:
+                    text = self.tokenizer.decode(acc[s][:max_new], skip_special_tokens=True)
+                    if any(st in text for st in stop_strings):
+                        fin = host_froze = done_np[s] = True
+                if fin:
+                    finished.append(s)
+            for s in finished:
+                row = acc[s][:max_new]
+                out_mat[slot_rows[s], :len(row)] = row
+                slot_rows[s], acc[s] = None, []
+                live -= 1
+            if host_froze:
+                done = torch.from_numpy(done_np).to(self.device)
+            free = [s for s in range(B) if slot_rows[s] is None]
+            # Wait for a full refill batch of free slots (bounds the prefill
+            # transient and the per-refill cost) unless no row is live.
+            while pending and free and (len(free) >= Br or live == 0):
+                k = min(Br, len(pending), len(free))
+                take, pending = pending[:k], pending[k:]
+                use, free = free[:k], free[k:]
+                batch = [rows[i] for i in take] + [[pad_tok]] * (Br - k)
+                slots = np.full((Br,), B, np.int64)  # B: out of range, dropped
+                slots[:k] = use
+                key = None if k_ref is None else gen_mod._fold(k_ref, refills)
+                pre = (self._rr_prep_pre(batch, k, Br, sess_host)
+                       if sess_kv is not None else None)
+                if pre is not None:
+                    gidx_r, sids_r, smask_r = pre
+                    self.programs["rr_refill_pre"] += 1
+                    tok, cache, wp, done = gen_mod.decoder_refill_slots_pre(
+                        self.model, cache, tok, wp, done, *sess_kv[:3], gidx_r, sids_r, smask_r,
+                        slots, temperature, key)
+                    pre_hits += 1
+                    kindr, argsr = "shared", (sess_kv[3], sess_kv[2], gidx_r, sids_r, smask_r)
+                else:
+                    kindr, argsr, _, _ = self._rr_prep(batch, Br, P)
+                    if kindr == "shared":
+                        self.programs["rr_refill_shared"] += 1
+                        refill = gen_mod.decoder_refill_slots_shared
+                    else:
+                        self.programs["rr_refill"] += 1
+                        refill = gen_mod.decoder_refill_slots
+                    tok, cache, wp, done = refill(self.model, cache, tok, wp, done, *argsr,
+                                                  slots, temperature, key)
+                if spec:
+                    gen_mod.scatter_rows(hist, self._spec_history(kindr, argsr, P + mn_pad),
+                                         slots)
+                for slot, row_i in zip(use, take):
+                    slot_rows[slot], acc[slot] = row_i, []
+                live += k
+                refills += 1
+            if live == 0 and not pending:
+                break
+        self.refill_stats["sessions"] += 1
+        self.refill_stats["refills"] += refills
+        self.refill_stats["prefix_kv_hits"] += pre_hits
+        self.spec_stats["tokens"] += spec_tokens
+        self.spec_stats["rounds"] += spec_rounds
+        return out_mat
+
+    def _decode_spec_chunked(self, tok, cache, hist: torch.Tensor, B: int, prompt_len: int,
+                             n: int, max_new_tokens: int, chunk_tokens: int,
+                             stop_strings: Sequence[str]) -> np.ndarray:
+        """Prompt-lookup speculative decoding from a prefilled cache, in
+        chunks of ``chunk_tokens // (K+1)`` verify rounds, with the host's
+        stop-string checks between chunks: the tokens of
+        ``_decode_chunked`` (greedy acceptance), each round yielding 1 to
+        K+1 of them, so rows advance unevenly and the host stitches them.
+        Without stop strings and with the tokenizer's EOS the model's, chunk
+        i+1 is enqueued before chunk i is read back."""
+        K = self.spec_lookup
+        rounds = max(1, chunk_tokens // (K + 1))
+        eos = int(self.cfg.eos_token_id)
+        wp = torch.full((B,), prompt_len, dtype=torch.long, device=self.device)
+        done = torch.zeros((B,), dtype=torch.bool, device=self.device)
+        rows_out: List[List[int]] = [[] for _ in range(B)]
+        kept = [0, 0]  # tokens the budget keeps, rounds that kept any
+
+        def stitch(outs_h, counts_h):
+            for b in range(n):
+                t, r = _spec_stitch(rows_out[b], outs_h[b], counts_h[b], max_new_tokens)
+                kept[0] += t
+                kept[1] += r
+
+        pipelined = not stop_strings and self.tokenizer.eos_id == eos
+        pending = None  # (outs, counts, frozen) of the chunk enqueued last
+        while True:
+            self.programs["dec_spec_chunk"] += 1
+            outs, counts, (tok, cache, hist, wp, done_dev) = gen_mod.decoder_spec_decode_chunk(
+                self.model, tok, cache, hist, wp, prompt_len, max_new_tokens, rounds, K, eos,
+                done=done)
+            if pipelined:
+                done = done_dev
+                # Every row done or past its budget: later rounds emit
+                # nothing (a spent budget alone never sets ``done``).
+                frozen = done_dev | (wp - prompt_len >= max_new_tokens)
+                prev, pending = pending, (outs, counts, frozen)
+                if prev is not None:
+                    stitch(prev[0].cpu().numpy(), prev[1].cpu().numpy())
+                    if bool(prev[2].all()):
+                        break
+                continue
+            stitch(outs.cpu().numpy(), counts.cpu().numpy())
+            newly = self._host_freeze(done_dev.cpu().numpy(), lambda i: rows_out[i], n, B,
+                                      max_new_tokens, stop_strings)
+            if all(newly):
+                break
+            done = torch.tensor(newly, dtype=torch.bool, device=self.device)
+        if pending is not None:
+            stitch(pending[0].cpu().numpy(), pending[1].cpu().numpy())
+        self.spec_stats["tokens"] += kept[0]
+        self.spec_stats["rounds"] += kept[1]
+        out = np.full((n, max_new_tokens), self.tokenizer.pad_id, np.int64)
+        for i in range(n):
+            row = rows_out[i][:max_new_tokens]
+            out[i, :len(row)] = row
+        return out
 
     def _host_freeze(self, done_h: np.ndarray, row_tokens, n: int, B: int,
                      max_new_tokens: Optional[int], stop_strings: Sequence[str]

@@ -22,6 +22,18 @@ quantized cache on the card that attention is the hand-written kernel
 (:func:`..ops.kvq_attention.kvq_decode_attention`), elsewhere its plain
 version. The decode loop never reads a value back to the host: rows freeze
 on EOS on the device, and the engine checks stop strings between chunks.
+
+Slot refill (continuous batching): :func:`decoder_decode_chunk_rr` decodes
+with each row appending at its own write position ``wp`` (frozen on the
+device once its budget is spent), and :func:`decoder_refill_slots` (a
+left-padded prefill), :func:`decoder_refill_slots_shared` (shared prefixes)
+or :func:`decoder_refill_slots_pre` (the session's prefix K/V) prefill
+pending rows and scatter them into freed slots of the live session. Prompt-
+lookup speculative decoding: :func:`decoder_spec_decode_chunk` drafts K
+tokens from a bigram/trigram match in each row's own history and verifies
+them in one (K+1)-token forward with greedy acceptance. Per-row writes
+follow ``jax.lax.dynamic_update_slice``: a start past the end clamps
+(:func:`_row_append`); a scatter to an out-of-range slot is dropped.
 """
 from __future__ import annotations
 
@@ -32,7 +44,8 @@ import torch.nn.functional as F
 
 from ..models.decoder import Decoder, positions_from_mask
 from ..ops.attention import mha, rms_norm
-from ..ops.kvq_attention import kvq_decode_attention, kvq_decode_attention_plain
+from ..ops.kvq_attention import (NEG_INF, _dot, cached_pv, cached_qk, kvq_decode_attention,
+                                 kvq_decode_attention_plain)
 
 _M64 = (1 << 64) - 1
 
@@ -104,6 +117,47 @@ def _cache_put(c: Cache, x: torch.Tensor, start: int, layer: Optional[int] = Non
     for dst, src in zip(c, (q, s)):
         dst = dst if layer is None else dst[layer]
         dst[..., start:start + n, :] = src
+
+
+def _row_append(buf: torch.Tensor, blk: torch.Tensor, starts: torch.Tensor) -> None:
+    """Per-row in-place write along T, the JAX ``_row_append`` (a vmapped
+    ``dynamic_update_slice``): row b's block goes to positions start_b ..
+    start_b + n - 1, with start_b clamped to [0, T - n] as
+    ``dynamic_update_slice`` clamps it. ``buf`` is [B, T] with ``blk`` [B,
+    n], or a cache leaf [Ld, B, KV, T, ...] with ``blk`` [Ld, B, KV, n, ...]."""
+    cache = buf.ndim > 2
+    T, n = (buf.shape[3], blk.shape[3]) if cache else (buf.shape[1], blk.shape[1])
+    B = starts.shape[0]
+    t_idx = starts.clamp(0, T - n)[:, None] + torch.arange(n, device=buf.device)
+    b_idx = torch.arange(B, device=buf.device)[:, None].expand(B, n)
+    if cache:
+        # The two index tensors are split by a slice, so the indexed view
+        # puts their [B, n] first: [B, n, Ld, KV, ...].
+        buf[:, b_idx, :, t_idx] = blk.permute(1, 3, 0, 2, *range(4, blk.ndim))
+    else:
+        buf[b_idx, t_idx] = blk
+
+
+def _cache_row_put(c: Cache, x: torch.Tensor, starts: torch.Tensor) -> None:
+    """Write ``x`` [Ld, B, KV, n, Dh] into every layer of a cache half at
+    each row's own start (:func:`_row_append`), quantizing it for a
+    quantized cache."""
+    mode = cache_mode(c)
+    if mode is None:
+        _row_append(c, x, starts)
+        return
+    for dst, src in zip(c, _kv_pack(x, mode)):
+        _row_append(dst, src, starts)
+
+
+def _slot_rows(slots, B: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rows of a refill batch, their session slots) for the slots in range:
+    a slot outside [0, B) marks a padding row, dropped as the JAX scatter's
+    ``mode="drop"`` drops it. ``slots`` is a host sequence."""
+    pairs = [(j, int(s)) for j, s in enumerate(slots) if 0 <= int(s) < B]
+    rows = torch.tensor([j for j, _ in pairs], dtype=torch.long, device=device)
+    dst = torch.tensor([s for _, s in pairs], dtype=torch.long, device=device)
+    return rows, dst
 
 
 def _layer(c: Cache, i: int) -> Cache:
@@ -337,16 +391,8 @@ def decoder_decode_chunk(
     for i in range(steps):
         t = offset + i
         cos, sin = model.rope(pos[:, None], dtype)
-        if win is not None:
-            # Padding is contiguous per region and appended slots turn valid
-            # in order, so the cumulative count of valid slots gives every
-            # slot's RoPE position; keys a window or more behind drop out.
-            slot_pos = torch.cumsum(kmask.long(), dim=1) - 1
-            amask = kmask & (pos[:, None] - slot_pos < win)
-        else:
-            amask = kmask
-        logits, k_new, v_new = _decode_token_forward(model, tok, k_cache, v_cache, amask,
-                                                     cos, sin)
+        logits, k_new, v_new = _decode_token_forward(
+            model, tok, k_cache, v_cache, _window_mask(kmask, pos, win), cos, sin)
         _cache_put(k_cache, k_new[:, :, :, None, :], L + t)
         _cache_put(v_cache, v_new[:, :, :, None, :], L + t)
         kmask[:, L + t] = True
@@ -366,3 +412,337 @@ def decoder_greedy_decode(model: Decoder, first_token: torch.Tensor, cache,
     out, _ = decoder_decode_chunk(model, first_token, cache, prompt_len, 0,
                                   max_new_tokens, eos_id)
     return out
+
+
+def _window_mask(kmask: torch.Tensor, pos: torch.Tensor, win: Optional[int]) -> torch.Tensor:
+    """The decode step's key mask: ``kmask``, less the keys a sliding window
+    or more behind ``pos`` (padding is contiguous per region and appended
+    slots turn valid in order, so the running count of valid slots gives
+    each slot's RoPE position)."""
+    if win is None:
+        return kmask
+    slot_pos = torch.cumsum(kmask.long(), dim=1) - 1
+    return kmask & (pos[:, None] - slot_pos < win)
+
+
+# ---------------------------------------------------------------------------
+# Slot refill (continuous batching)
+# ---------------------------------------------------------------------------
+def decoder_decode_chunk_rr(
+    model: Decoder,
+    first_token: torch.Tensor,  # [B] next token to consume per slot
+    cache,
+    wp: torch.Tensor,  # [B] per-row cache write position
+    prompt_len: int,  # the session's prompt area (a row's wp starts there)
+    max_new_tokens: int,  # per-row budget, counted from the row's wp - P
+    steps: int,
+    eos_id: int,
+    done: torch.Tensor,  # [B]
+    temperature: float = 0.0,
+    key: Optional[int] = None,  # sampling seed; step i samples with _fold(key, step0 + i)
+    step0: int = 0,
+):
+    """Decode chunk of a slot-refill session: each row appends its K/V at
+    its own ``wp``, so a slot refilled at a later chunk boundary decodes
+    beside older rows, with a full budget counted from its own prompt end
+    and frozen on the device once that is spent. A row's tokens depend only
+    on its own cache row, key mask and RoPE position, so with a uniform
+    ``wp`` this is :func:`decoder_decode_chunk`. The cache is updated in
+    place. Returns (tokens [B, steps], (next token, cache, wp, done))."""
+    k_cache, v_cache, kmask, pos = cache
+    T = kmask.shape[1]
+    pad = model.cfg.pad_token_id
+    win = model.cfg.sliding_window
+    win = win if (win is not None and T > win) else None
+    dtype = _act_dtype(model)
+    tok, outs = first_token, []
+    for i in range(steps):
+        live = ~done & (wp - prompt_len < max_new_tokens)
+        cos, sin = model.rope(pos[:, None], dtype)
+        logits, k_new, v_new = _decode_token_forward(
+            model, tok, k_cache, v_cache, _window_mask(kmask, pos, win), cos, sin)
+        nxt = _pick(logits, temperature, None if key is None else _fold(key, step0 + i))
+        outs.append(torch.where(live, tok, torch.full_like(tok, pad)))
+        # Frozen rows overwrite their one unused slot with a value their
+        # mask never shows (the mask bit written is False); a row whose
+        # budget is spent has wp == T, and the write clamps to T - 1, a
+        # slot only that frozen row could read.
+        _cache_row_put(k_cache, k_new[:, :, :, None, :], wp)
+        _cache_row_put(v_cache, v_new[:, :, :, None, :], wp)
+        _row_append(kmask, live[:, None], wp)
+        done = done | (live & (tok == eos_id))
+        tok = torch.where(live & ~done, nxt, tok)
+        adv = live.to(wp.dtype)
+        pos, wp = pos + adv, wp + adv
+    out = torch.stack(outs, dim=1) if outs else first_token.new_zeros((first_token.shape[0], 0))
+    return out, (tok, (k_cache, v_cache, kmask, pos), wp, done)
+
+
+def _rr_scatter(cache, tok, wp, done, new_cache, new_tok, slots):
+    """Scatter freshly prefilled rows into a session's state at ``slots``
+    (a host sequence; a slot out of range marks a padding row and is
+    dropped), in place. ``new_cache`` is an unpadded cache tuple whose T
+    axis is the new rows' prompt length P: only [:P] of a slot is
+    rewritten, and the previous occupant's K/V behind it stay, hidden by the
+    key mask. Refilled rows restart at wp = P with their own RoPE
+    position. Returns (tok, cache, wp, done)."""
+    k_cache, v_cache, kmask, pos = cache
+    nkc, nvc, nkmask, npos = new_cache
+    B = kmask.shape[0]
+    P = nkmask.shape[1]
+    rows, dst = _slot_rows(slots, B, kmask.device)
+    if rows.numel():
+        for buf, new in ((k_cache, nkc), (v_cache, nvc)):
+            pairs = zip(buf, new) if isinstance(buf, tuple) else ((buf, new),)
+            for b, x in pairs:
+                b[:, dst, :, :P] = x.index_select(1, rows).to(b.dtype)
+        kmask[dst] = False
+        kmask[dst, :P] = nkmask.bool().index_select(0, rows)
+        pos[dst] = npos.index_select(0, rows).to(pos.dtype)
+        tok[dst] = new_tok.index_select(0, rows).to(tok.dtype)
+        wp[dst] = P
+        done[dst] = False
+    return tok, (k_cache, v_cache, kmask, pos), wp, done
+
+
+def decoder_refill_slots(
+    model: Decoder,
+    cache,
+    tok: torch.Tensor,
+    wp: torch.Tensor,
+    done: torch.Tensor,
+    ids: torch.Tensor,  # [Br, P] left-padded to the session's prompt length
+    mask: torch.Tensor,  # [Br, P]
+    slots,  # [Br] session slot per row, host ints; out of range = padding
+    temperature: float = 0.0,
+    key: Optional[int] = None,
+):
+    """Prefill pending prompts and scatter them into a decode session: the
+    session's cache keeps its shape and only the freed rows' contents are
+    replaced. The new K/V stay at prompt length until the scatter (no
+    P + max_new cache for the refill batch). Returns (tok, cache, wp, done)
+    with the refilled slots live."""
+    h, ks, vs, pos = prefill_layers(model, ids, mask)
+    first = _pick(model.lm_logits(h[:, -1, :]), temperature, key)  # left-padded
+    mode = cache_mode(cache[0])
+    nkc, nvc = (ks, vs) if mode is None else (_kv_pack(ks, mode), _kv_pack(vs, mode))
+    return _rr_scatter(cache, tok, wp, done, (nkc, nvc, mask, pos[:, -1] + 1), first, slots)
+
+
+def decoder_refill_slots_pre(
+    model: Decoder,
+    cache,
+    tok: torch.Tensor,
+    wp: torch.Tensor,
+    done: torch.Tensor,
+    ks: torch.Tensor,  # [Ld, G, KV, Lp, Dh] the session's prefix K/V
+    vs: torch.Tensor,
+    pmask: torch.Tensor,  # [G, Lp]
+    gidx: torch.Tensor,  # [Br] group per row
+    sids: torch.Tensor,  # [Br, Ls] right-padded suffixes; Lp + Ls == P
+    smask: torch.Tensor,
+    slots,  # [Br] host ints
+    temperature: float = 0.0,
+    key: Optional[int] = None,
+):
+    """Refill from the session's prefix K/V: only the suffix tokens run a
+    forward. The scattered rows have the shared-prefix layout (prefix, hole,
+    suffix), beside left-padded rows of the same session: every row is
+    described by its own key mask and RoPE position."""
+    last_h, new_cache = decoder_shared_prefill(
+        model, ks.index_select(1, gidx), vs.index_select(1, gidx),
+        pmask.index_select(0, gidx), sids, smask, 0, kv_quant=cache_mode(cache[0]))
+    first = _pick(model.lm_logits(last_h), temperature, key)
+    return _rr_scatter(cache, tok, wp, done, new_cache, first, slots)
+
+
+def decoder_refill_slots_shared(
+    model: Decoder,
+    cache,
+    tok: torch.Tensor,
+    wp: torch.Tensor,
+    done: torch.Tensor,
+    pids: torch.Tensor,  # [G, Lp] right-padded unique prefixes
+    pmask: torch.Tensor,
+    gidx: torch.Tensor,  # [Br]
+    sids: torch.Tensor,  # [Br, Ls]; Lp + Ls == P
+    smask: torch.Tensor,
+    slots,  # [Br] host ints
+    temperature: float = 0.0,
+    key: Optional[int] = None,
+):
+    """:func:`decoder_refill_slots_pre` on prefixes of the refill batch's
+    own: the unique prefixes run once, rows gather their group's K/V."""
+    ks, vs = decoder_prefix_kv(model, pids, pmask)
+    return decoder_refill_slots_pre(model, cache, tok, wp, done, ks, vs, pmask, gidx, sids,
+                                    smask, slots, temperature=temperature, key=key)
+
+
+def scatter_rows(buf: torch.Tensor, new: torch.Tensor, slots) -> None:
+    """``buf[slots[j]] = new[j]`` in place for the slots in range (a padding
+    row's out-of-range slot is dropped)."""
+    rows, dst = _slot_rows(slots, buf.shape[0], buf.device)
+    if rows.numel():
+        buf[dst] = new.index_select(0, rows).to(buf.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Prompt-lookup speculative decoding
+# ---------------------------------------------------------------------------
+def _shift(x: torch.Tensor, n: int, fill) -> torch.Tensor:
+    """``x`` [B, T] moved n positions right along T, ``fill`` in front."""
+    return torch.cat([torch.full_like(x[:, :n], fill), x[:, :-n]], dim=1)
+
+
+def _verify_attention(q, k, v, kcl: Cache, vcl: Cache, amask, tri, scale: float,
+                      mode: Optional[str]) -> torch.Tensor:
+    """Attention of the S-token verify block, [B, H, S, Dh] in q's dtype:
+    over the read-only cache (masked by ``amask``), over the block's earlier
+    positions (strictly below the diagonal, ``tri``) and each token's own
+    K/V as a separate term. Under a quantized cache the earlier positions
+    go through the cache's quantizer, as a step-by-step decode would have
+    read them back, and the self term stays unquantized, as in that decode.
+    This is plain PyTorch over the cache: the JAX verify is XLA einsums, and
+    the B8 kernel attends one query token, not a block."""
+    B, H, S, Dh = q.shape
+    KV = k.shape[1]
+    dtype = q.dtype
+    qg = q.reshape(B, KV, H // KV, S, Dh)
+    s_c = cached_qk(qg, kcl, dtype, mode, "bkgsd,bktd->bkgst") * scale
+    s_c = s_c.masked_fill(~amask, NEG_INF)
+    kb, vb = (_kv_pack(k, mode), _kv_pack(v, mode)) if mode else (k, v)
+    s_b = cached_qk(qg, kb, dtype, mode, "bkgsd,bkud->bkgsu") * scale
+    s_b = s_b.masked_fill(~tri, NEG_INF)
+    s_self = _dot("bkgsd,bksd->bkgs", qg, k) * scale
+    m = torch.maximum(torch.maximum(s_c.amax(dim=-1), s_b.amax(dim=-1)), s_self)
+    p_c = torch.exp(s_c - m[..., None])
+    p_b = torch.exp(s_b - m[..., None])
+    p_self = torch.exp(s_self - m)
+    z = p_c.sum(dim=-1) + p_b.sum(dim=-1) + p_self
+    a = (cached_pv(p_c, vcl, dtype, mode, "bkgst,bktd->bkgsd")
+         + cached_pv(p_b, vb, dtype, mode, "bkgsu,bkud->bkgsd")
+         + p_self[..., None] * v.float()[:, :, None]) / z[..., None]
+    return a.to(dtype).reshape(B, H, S, Dh)
+
+
+def decoder_spec_decode_chunk(
+    model: Decoder,
+    first_token: torch.Tensor,  # [B] pending token (greedy, not yet consumed)
+    cache,
+    hist: torch.Tensor,  # [B, T] token history laid out like the cache
+    wp: torch.Tensor,  # [B] per-row cache write position
+    prompt_len: int,
+    max_new_tokens: int,  # per-row budget (frozen past it)
+    rounds: int,
+    K: int,  # draft length per round
+    eos_id: int,
+    done: Optional[torch.Tensor] = None,
+):
+    """``rounds`` rounds of prompt-lookup speculative decoding.
+
+    Each round drafts K tokens from the last trigram match (else bigram) of
+    the row's last tokens in its own valid history, then verifies the
+    pending token and the drafts in one (K+1)-token forward against the
+    read-only cache. Greedy acceptance keeps the tokens those of the
+    step-by-step decode whatever the drafts: every emitted token is the
+    model's argmax, and the drafts only decide how many one forward yields
+    (1 to K+1). Rows accept different counts: each writes its block at its
+    own ``wp`` (clamped as :func:`_row_append`), and only the consumed part
+    is marked valid; the rest is overwritten by the next round's block, so
+    the cache needs 2(K+1) slots of slack past ``prompt_len +
+    max_new_tokens``. Caches and history are updated in place.
+
+    Returns (tokens [B, rounds, K+1], counts [B, rounds], (next token,
+    cache, hist, wp, done))."""
+    k_cache, v_cache, kmask, pos = cache
+    cfg = model.cfg
+    B = first_token.shape[0]
+    S = K + 1
+    T = kmask.shape[1]
+    dev = kmask.device
+    pad = cfg.pad_token_id
+    L = prompt_len
+    mode = cache_mode(k_cache)
+    scale = cfg.head_dim_**-0.5
+    if done is None:
+        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    pos_idx = torch.arange(T, device=dev)[None, :]
+    idxS = torch.arange(S, device=dev)[None, :]
+    # Strictly below the diagonal: each token's own K/V is the separate
+    # unquantized self term of _verify_attention.
+    rel = torch.arange(S, device=dev)[:, None] - torch.arange(S, device=dev)[None, :]
+    tri = rel > 0
+    win = cfg.sliding_window
+    win = win if (win is not None and T > win) else None
+    if win is not None and win < S:
+        tri = tri & (rel < win)
+    tok, outs, counts = first_token, [], []
+    for _ in range(rounds):
+        frozen = done | (wp - L >= max_new_tokens)
+        # -- draft: the last match of the row's last two (three) tokens --
+        p_prev = torch.where(kmask, pos_idx, -1).amax(dim=1)
+        prev = hist.gather(1, p_prev.clamp_min(0)[:, None])[:, 0]
+        prev = torch.where(p_prev >= 0, prev, -1)
+        before = pos_idx < p_prev[:, None]
+        # The last valid position is excluded: a match there is the current
+        # context itself, whose continuation is not generated yet.
+        match = ((hist == tok[:, None]) & (_shift(hist, 1, -1) == prev[:, None])
+                 & kmask & _shift(kmask, 1, False) & before)
+        p_prev2 = torch.where(kmask & before, pos_idx, -1).amax(dim=1)
+        prev2 = hist.gather(1, p_prev2.clamp_min(0)[:, None])[:, 0]
+        prev2 = torch.where(p_prev2 >= 0, prev2, -2)
+        match3 = match & (_shift(hist, 2, -1) == prev2[:, None]) & _shift(kmask, 2, False)
+        p2 = torch.where(match, pos_idx, -1).amax(dim=1)
+        p3 = torch.where(match3, pos_idx, -1).amax(dim=1)
+        p_best = torch.where(p3 >= 0, p3, p2)
+        didx = (p_best[:, None] + 1 + torch.arange(K, device=dev)[None, :]).clamp_max(T - 1)
+        dvalid = kmask.gather(1, didx) & (p_best >= 0)[:, None]
+        drafts = torch.where(dvalid, hist.gather(1, didx), pad).to(tok.dtype)
+        bt = torch.cat([tok[:, None], drafts], dim=1)  # [B, S]
+
+        # -- verify: one S-token forward against the read-only cache --
+        x = model.embed_rows(bt)
+        poss = pos[:, None] + idxS
+        cos, sin = model.rope(poss, x.dtype)
+        if win is not None:
+            slot_pos = torch.cumsum(kmask.long(), dim=1) - 1
+            amask = (kmask[:, None, :]
+                     & (poss[:, :, None] - slot_pos[:, None, :] < win))[:, None, None]
+        else:
+            amask = kmask[:, None, None, None, :]
+        k_rows, v_rows = [], []
+        for i, lp in enumerate(model.layers):
+            kcl, vcl = _layer(k_cache, i), _layer(v_cache, i)
+
+            def attend(q, k, v):
+                return _verify_attention(q, k, v, kcl, vcl, amask, tri, scale, mode)
+
+            x, k, v = model.layer(lp, x, cos, sin, attend)
+            k_rows.append(k)
+            v_rows.append(v)
+        h = rms_norm(x, model.final_ln, cfg.rms_norm_eps)
+        nxt = torch.argmax(model.lm_logits(h), dim=-1).to(tok.dtype)  # [B, S]
+
+        # -- greedy acceptance --
+        flags = torch.cumprod((bt[:, 1:] == nxt[:, :-1]).int(), dim=1)
+        acc = flags.sum(dim=1)
+        is_eos = (bt == eos_id) & (idxS <= acc[:, None])
+        any_eos = is_eos.any(dim=1) & ~frozen
+        first_eos = torch.argmax(is_eos.int(), dim=1)  # the first maximum
+        c = torch.where(any_eos, first_eos + 1, acc + 1)
+        c = torch.where(frozen, torch.zeros_like(c), c)
+        outs.append(torch.where(idxS < c[:, None], bt, torch.full_like(bt, pad)))
+        counts.append(c)
+        bonus = nxt.gather(1, (c - 1).clamp_min(0)[:, None])[:, 0]
+        tok = torch.where(frozen, tok, torch.where(any_eos, torch.full_like(tok, eos_id), bonus))
+        done = done | any_eos
+
+        # -- append the block at each row's own position --
+        _cache_row_put(k_cache, torch.stack(k_rows), wp)
+        _cache_row_put(v_cache, torch.stack(v_rows), wp)
+        _row_append(hist, bt.to(hist.dtype), wp)
+        _row_append(kmask, idxS < c[:, None], wp)
+        c = c.to(wp.dtype)
+        pos, wp = pos + c, wp + c
+    return (torch.stack(outs, dim=1), torch.stack(counts, dim=1),
+            (tok, (k_cache, v_cache, kmask, pos), hist, wp, done))

@@ -8,9 +8,9 @@ and ``engine/generate.py`` against the JAX package.
   with a stop string that fires; a Mistral-like window of 64; int8 and int4
   weights; several dispatches. The completions, the token counts and the
   programs run (the JAX ``_jit_cache`` names against the port's
-  ``programs``) are equal. Where the JAX engine would run a slot-refill
-  session, the port runs the dispatches in turn (ROADMAP A8(b)), so the JAX
-  side runs with ``LLMRANKERS_NO_REFILL=1``.
+  ``programs``) are equal. These are the per-dispatch route's tests: both
+  engines run with ``LLMRANKERS_NO_REFILL=1``, off the slot-refill session
+  that ``tests/test_torch_refill.py`` checks.
 - Greedy decoding against HF ``generate`` on models built from config
   (Llama, Qwen2), left-padded; chunked decoding equals one pass; the decode
   writes the preallocated cache in place.
@@ -19,7 +19,8 @@ and ``engine/generate.py`` against the JAX package.
 - Sampling (not comparable with ``jax.random``): a seed reproduces its
   tokens, another seed differs, temperature 0 is greedy, the stream is keyed
   per global step (chunking does not change it) and per dispatch chunk.
-- ``kv_quantize`` is validated as in JAX; ``spec_lookup`` raises A8(b).
+- ``kv_quantize`` is validated as in JAX; with ``spec_lookup`` sampling
+  raises, as in JAX.
 """
 import dataclasses
 
@@ -53,7 +54,8 @@ STOP = ("</answer>",)
 @pytest.fixture(autouse=True)
 def _reference_env(monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    # The JAX engine's refill session has no counterpart in the port yet.
+    # The per-dispatch route: both engines read this switch and run off
+    # their slot-refill sessions.
     monkeypatch.setenv("LLMRANKERS_NO_REFILL", "1")
 
 
@@ -326,8 +328,9 @@ def test_kv_quantize_validation(trees):
     odd = dataclasses.replace(tcfg, head_dim=15)
     with pytest.raises(ValueError, match="even head_dim"):
         ScoringEngine("decoder", odd, tdec.Decoder(odd, device="cpu"), tok, kv_quantize="int4")
-    with pytest.raises(NotImplementedError, match=r"A8\(b\)"):
-        ScoringEngine("decoder", tcfg, model, tok, spec_lookup=4)
+    spec = ScoringEngine("decoder", tcfg, model, tok, spec_lookup=4)
+    with pytest.raises(ValueError, match="incompatible with spec_lookup"):
+        spec.generate([[5, 6]], 2, temperature=1.0)
     eng = ScoringEngine("decoder", tcfg, model, tok, kv_quantize="int8")
     assert eng.cfg.kv_quant == "int8" and model.cfg.kv_quant is None
     with pytest.raises(NotImplementedError, match="A10"):

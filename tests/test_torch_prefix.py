@@ -149,11 +149,12 @@ def test_group_matches_jax(trees, seed):
     jeng, teng = _engines(trees)
     rows = _wave(seed, n_rows=13, prefixes=(70, 45, 33))
     jn, jargs, jhost = jeng._group(rows, want_host=True)
-    tn, targs, pre_rows = teng._group(rows)
+    tn, targs, thost = teng._group(rows)
     assert tn == jn
     for t, j in zip(targs, jargs):  # pids, pmask, gidx, sids, smask
         np.testing.assert_array_equal(t.cpu().numpy(), np.asarray(j))
-    assert pre_rows == jhost[0]
+    # (prefix token lists, padded prefix length, suffix length)
+    assert thost == (jhost[0], jhost[2], jhost[3])
     assert teng._group(rows[:1]) is None and jeng._group(rows[:1]) is None
 
 
@@ -188,10 +189,13 @@ def test_decoder_engine_unported_options_raise(trees):
     model = tdec.params_from_jax(trees[None], tcfg, device="cpu")
     tok = ByteTokenizer(tcfg.vocab_size)
     for kw, item in ((dict(quantize="int8", awq_calib=["p"]), "A9 \\(AWQ\\)"),
-                     (dict(quantize="int4", awq_calib=["p"]), "A9 \\(AWQ\\)"),
-                     (dict(spec_lookup=4), "A8\\(b\\)")):
+                     (dict(quantize="int4", awq_calib=["p"]), "A9 \\(AWQ\\)")):
         with pytest.raises(NotImplementedError, match=item):
             ScoringEngine("decoder", tcfg, model, tok, **kw)
+    # Speculative decoding is ported: the engine takes it, with empty stats.
+    spec = ScoringEngine("decoder", tcfg, model, tok, spec_lookup=4)
+    assert spec.spec_lookup == 4 and spec.spec_stats == {"tokens": 0, "rounds": 0}
+    assert spec.refill_stats == {"sessions": 0, "refills": 0, "prefix_kv_hits": 0}
     eng = ScoringEngine("decoder", tcfg, model, tok)
     assert not eng.model.use_flash  # flash is on only on a CUDA device
     with pytest.raises(NotImplementedError, match="A10"):

@@ -5,16 +5,17 @@ scoring on decoder-only models.
   JAX ranker on the same parameter tree (fp32, tiny decoder): the final
   orders docid for docid and the token meters, on both setwise-R1 prompt
   packs (the port's copies), on the left-padded and the prefix-cache paths,
-  with a quantized KV cache. The JAX engine runs off its slot-refill session
-  (``LLMRANKERS_NO_REFILL=1``), which the port does not have yet.
+  with a quantized KV cache. Both engines run off their slot-refill
+  sessions (``LLMRANKERS_NO_REFILL=1``; ``tests/test_torch_refill.py``
+  checks those).
 - The completion parsing and vote with scripted completions (the cases of
   ``tests/test_reference_parity_r1.py``): the port's decision equals the JAX
   ranker's on each.
 - ``SetwiseLlmRanker(scoring="generation")`` on a decoder, with one
   permutation and with permutation voting: orders and meters equal.
 - The CLI's ``--prompt_file`` with ``--kv_quantize int4`` on ``random:dec-tiny``
-  writes the JAX CLI's file; what is not ported raises (Rank-R1 listwise:
-  A6; adapters: A10).
+  writes the JAX CLI's file, also with ``--spec_lookup 4``; what is not
+  ported raises (Rank-R1 listwise: A6; adapters: A10).
 """
 import dataclasses
 import json
@@ -186,6 +187,12 @@ def test_cli_rank_r1_matches_jax(tmp_path, monkeypatch):
     """The port's CLI with --prompt_file and --kv_quantize int4 on
     random:dec-tiny against the JAX CLI, same argv, same JAX draw of
     weights."""
+    _cli_matches_jax(tmp_path, monkeypatch)
+
+
+def _cli_matches_jax(tmp_path, monkeypatch, *run_flags):
+    """The Rank-R1 setwise CLI of both packages with the same argv (plus
+    ``run_flags``) and the JAX draw of weights: the same output file."""
     from llmrankers_tpu.cli import run as jrun
     from llmrankers_tpu_torch.cli import run as trun
 
@@ -201,7 +208,7 @@ def test_cli_rank_r1_matches_jax(tmp_path, monkeypatch):
                 "--run_path", str(tmp_path / "run.txt"), "--query_file", str(tmp_path / "q.tsv"),
                 "--corpus_file", str(tmp_path / "c.jsonl"),
                 "--save_path", str(tmp_path / "out.txt"), "--device", "cpu",
-                "--dtype", "float32", "--kv_quantize", "int4",
+                "--dtype", "float32", "--kv_quantize", "int4", *run_flags,
                 "--prompt_file", os.path.join(ROOT, pkg, "prompts", "prompt_setwise-R1.toml"),
                 "setwise", "--num_child", "7", "--k", "2", "--max_completion_tokens", "16"]
 
@@ -219,7 +226,7 @@ def test_cli_rank_r1_matches_jax(tmp_path, monkeypatch):
     assert report.total.completion_tokens > 0
 
 
-def test_unported_rank_r1_paths_raise(tree, tmp_path):
+def test_unported_rank_r1_paths_raise(tree, tmp_path, monkeypatch):
     from llmrankers_tpu_torch.cli import run as trun
 
     _, teng = _engines(tree)
@@ -232,7 +239,13 @@ def test_unported_rank_r1_paths_raise(tree, tmp_path):
                             "cpu", "--prompt_file", pack, "listwise"])
     with pytest.raises(NotImplementedError, match="A6"):
         trun.main(args)
-    args = trun.parse_args(["run", "--model_name_or_path", "random:dec-tiny", "--device",
-                            "cpu", "--spec_lookup", "4", "setwise", "--prompt_file", pack])
-    with pytest.raises(NotImplementedError, match=r"A8\(b\)"):
-        trun.main(args)
+    # Speculative decoding is ported: the CLI with --spec_lookup 4 ranks as
+    # the JAX CLI does, docid for docid. Its thousands of small ops run on
+    # one intra-op thread, so as not to oversubscribe the cores beside other
+    # test processes.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _cli_matches_jax(tmp_path, monkeypatch, "--spec_lookup", "4")
+    finally:
+        torch.set_num_threads(threads)

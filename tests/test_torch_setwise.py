@@ -143,10 +143,19 @@ def test_cli_reranks_trec_run(tmp_path, capsys):
 
 
 def test_cli_raises_on_unported_flags(tmp_path):
+    """A flag whose feature is not ported raises with its ROADMAP item;
+    ``--spec_lookup`` is ported and, on T5, raises the JAX CLI's error."""
+    from llmrankers_tpu.cli import run as jrun
+
     _write_inputs(tmp_path)
-    args = trun.parse_args(_argv(tmp_path, "--device", "cpu", "--spec_lookup", "4"))
-    with pytest.raises(NotImplementedError, match="A8\\(b\\)"):
+    args = trun.parse_args(_argv(tmp_path, "--device", "cpu", "--cohorts", "2"))
+    with pytest.raises(NotImplementedError, match="A15"):
         trun.main(args)
+    argv = _argv(tmp_path, "--device", "cpu", "--spec_lookup", "4")
+    with pytest.raises(ValueError, match="spec_lookup targets decoder generation"):
+        jrun.main(jrun.parse_args(argv))
+    with pytest.raises(ValueError, match="spec_lookup targets decoder generation"):
+        trun.main(trun.parse_args(argv))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
