@@ -28,6 +28,9 @@ comparison, ``--kv_quantize int8|int4`` quantizes the generation KV cache
 (its decode attention runs the hand-written kernel on the card), and
 ``--prompt_file`` (in the run or the setwise section) runs the Rank-R1
 setwise ranker with that TOML prompt pack and ``--max_completion_tokens``.
+``--profile_dir`` writes a ``torch.profiler`` Chrome trace of the rerank, the
+port's spans above its operators; with ``--event_log`` the ``run_done`` event
+carries each span name's count and seconds and the engine's ``pad_stats``.
 Flags of features that are not ported yet raise ``NotImplementedError``
 naming their ROADMAP item.
 """
@@ -183,7 +186,7 @@ def build_parsers():
                             "prompt, e.g. Rank-R1 reasoning")
     run_p.add_argument("--event_log", type=str, default=None)
     run_p.add_argument("--profile_dir", type=str, default=None,
-                       help="capture a jax.profiler device trace here")
+                       help="write a torch.profiler Chrome trace of the rerank here")
     run_p.add_argument("--seed", type=int, default=929)
     run_p.add_argument("--len_buckets", type=_bucket_list, default=None,
                        help="comma-separated padded-length ladder, e.g. "
@@ -287,7 +290,6 @@ def _check_ported(args) -> None:
         (r.tensor_parallel > 1 or r.data_parallel > 1,
          "--tensor_parallel/--data_parallel", "A13"),
         (r.cohorts > 1, "--cohorts", "A15"),
-        (r.profile_dir, "--profile_dir", "A14"),
         (args.pointwise or args.pairwise or args.listwise,
          "pointwise/pairwise/listwise", "A6"),
     ]
@@ -442,7 +444,9 @@ def main(args):
     """Rerank, stream each query's result to ``--save_path``, print the
     reference's four meters; returns the MeterReport."""
     from ..data.trec import RunWriter
+    from ..utils import metering
     from ..utils.metering import EventLog, MeterReport
+    from ..utils.profiling import trace
 
     _check_ported(args)
     rng = random.Random(args.run.seed)
@@ -461,6 +465,8 @@ def main(args):
 
     report = MeterReport()
     log = EventLog(args.run.event_log)
+    if args.run.event_log:
+        metering.enable()  # run_done carries the spans' totals
     tic = time.time()
     with RunWriter(args.run.save_path, "LLMRankers", append=args.run.resume) as w:
         def on_result(i, ranking):
@@ -468,14 +474,22 @@ def main(args):
             w.write_query(qid, ranking)
             log.emit("query_done", qid=qid)
 
-        ranker.rerank_many([q for _, q, _ in first_stage],
-                           [r for _, _, r in first_stage], on_result=on_result)
+        with trace(args.run.profile_dir):
+            ranker.rerank_many([q for _, q, _ in first_stage],
+                               [r for _, _, r in first_stage], on_result=on_result)
         report.wall_s = time.time() - tic
         for stats in ranker.per_query_stats:
             report.add_query(stats)
         report.truncated_rows = engine.truncated_rows
     report.print_summary()
-    log.emit("run_done", **report.summary())
+    spans = {}
+    if args.run.event_log:
+        metering.disable()
+        for name, t0, t1, *_ in metering.take():
+            total = spans.setdefault(name, {"count": 0, "seconds": 0.0})
+            total["count"] += 1
+            total["seconds"] += t1 - t0
+    log.emit("run_done", **report.summary(), spans=spans, pad_stats=dict(engine.pad_stats))
     log.close()
     return report
 

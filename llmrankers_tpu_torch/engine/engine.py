@@ -46,6 +46,14 @@ own write position (``dec_chunk_rr``). With ``spec_lookup`` = K > 0 the
 decode is prompt-lookup speculative (``dec_spec_chunk``): K drafts from the
 row's own history, verified in one (K+1)-token forward, greedy only.
 
+The host's phases are spans of ``utils.metering`` (off by default):
+``engine.call`` around each ``score_labels`` and ``generate``, inside it
+``engine.prepare`` (chunking, grouping, padding, prefix-cache lookups, copies
+to the device), ``engine.launch`` (enqueueing one program), ``engine.readback``
+(copies back, where the host waits for the device) and ``engine.emit`` (tokens
+to text, stop strings). ``pad_stats`` counts the token slots every dispatch
+padded and the real tokens in them, always.
+
 The rest of the JAX engine raises ``NotImplementedError`` naming the ROADMAP
 item that ports it. The host modules come from the port's own copies
 (``utils/native.py``, ``engine/prefix.py``).
@@ -69,6 +77,7 @@ from ..models.quant import (quantize_decoder_params, quantize_decoder_params_int
                             quantize_t5_params)
 from ..models.t5 import T5
 from ..utils import native
+from ..utils.metering import span
 from . import generate as gen_mod
 from . import prefix as prefix_mod
 from .tokenizer import Tokenizer
@@ -219,6 +228,9 @@ class ScoringEngine:
         self._pkv_bytes = 0
         self._pkv_budget = int(prefix_cache_mb) * (1 << 20) if self.prefix_share else 0
         self.pkv_stats = {"hits": 0, "misses": 0, "evictions": 0}
+        # Token slots every dispatch padded (``_pad_batch``: batch bucket x
+        # length bucket) and the real tokens in them.
+        self.pad_stats = {"real_tokens": 0, "slot_tokens": 0}
         # Dispatches by the JAX engine's program name.
         self.programs: "collections.Counter[str]" = collections.Counter()
         self.spec_lookup = int(spec_lookup)
@@ -239,24 +251,30 @@ class ScoringEngine:
     def _pad_batch(
         self, rows: List[List[int]], left: bool = False,
         b_cap: Optional[int] = None, l_force: Optional[int] = None,
+        n_real: Optional[int] = None,
     ) -> Tuple[np.ndarray, np.ndarray, int, int]:
         """Pad token rows into a (batch, length) bucket: right padding for
         T5 prompts and decoder prefixes/suffixes, left padding for whole
         decoder prompts. ``b_cap`` bounds the batch bucket (the padded batch
-        is then the row count), ``l_force`` pins the padded length."""
-        n = len(rows)
-        max_len = max((len(r) for r in rows), default=1)
-        if l_force is not None:
-            L = l_force
-        else:
-            L = self._cap_len(_bucket(max_len, self.len_buckets), max_len)
-        if L < max_len:  # context cap hit: count every truncated row
-            self.truncated_rows += sum(1 for r in rows if len(r) > L)
-        B = _bucket(n, self.batch_buckets)
-        if b_cap is not None and B > b_cap:
-            B = n
-        ids, mask = native.pack_padded(rows, B, L, self.tokenizer.pad_id, left)
-        return ids, mask, n, B
+        is then the row count), ``l_force`` pins the padded length. Rows
+        past ``n_real`` are padding rows: ``pad_stats`` counts their tokens
+        as slots only."""
+        with span("engine.prepare"):
+            n = len(rows)
+            max_len = max((len(r) for r in rows), default=1)
+            if l_force is not None:
+                L = l_force
+            else:
+                L = self._cap_len(_bucket(max_len, self.len_buckets), max_len)
+            if L < max_len:  # context cap hit: count every truncated row
+                self.truncated_rows += sum(1 for r in rows if len(r) > L)
+            B = _bucket(n, self.batch_buckets)
+            if b_cap is not None and B > b_cap:
+                B = n
+            self.pad_stats["real_tokens"] += sum(min(len(r), L) for r in rows[:n_real])
+            self.pad_stats["slot_tokens"] += B * L
+            ids, mask = native.pack_padded(rows, B, L, self.tokenizer.pad_id, left)
+            return ids, mask, n, B
 
     def _ctx_cap(self) -> int:
         """Hard context cap: decoder RoPE positions past
@@ -350,10 +368,11 @@ class ScoringEngine:
         return max(1, int(free // per_row))
 
     def _to_device(self, *arrays: np.ndarray) -> Tuple[torch.Tensor, ...]:
-        return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+        with span("engine.prepare"):
+            return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
 
     def _group(self, chunk: List[List[int]], b_cap: Optional[int] = None,
-               l_total: Optional[int] = None):
+               l_total: Optional[int] = None, n_real: Optional[int] = None):
         """Shared-prefix grouping of a chunk (decoder kind only).
 
         Returns (n, device args (pids, pmask, gidx, sids, smask), host info
@@ -362,38 +381,41 @@ class ScoringEngine:
         order; only the prefix compute is deduplicated. ``b_cap`` bounds the
         suffix batch (memory-capped generate chunks); ``l_total`` pins the
         padded prefix plus suffix length to that many positions (a refill
-        session's prompt area), and None is returned where they do not fit."""
+        session's prompt area), and None is returned where they do not fit.
+        Rows past ``n_real`` are padding rows (``_pad_batch``)."""
         if not self.prefix_share:
             return None
-        grp = prefix_mod.group_shared_prefixes(chunk)
-        if grp is None:
-            return None
-        pre_rows, gidx, suf_rows = grp
-        # Prefix and suffix are padded separately, so the plain path's
-        # context cap cannot see the combined length: rows that would
-        # exceed it take the ungrouped path, which truncates them.
-        cap = self._ctx_cap()
-        if cap and any(len(pre_rows[g]) + len(s) > cap for g, s in zip(gidx, suf_rows)):
-            return None
-        l_pre = l_suf = None
-        if l_total is not None:
-            # A ladder rung for the prefix, or its exact length where the
-            # rung leaves the suffixes too little of the total.
-            pre_max = max((len(p) for p in pre_rows), default=0)
-            suf_max = max(len(r) for r in suf_rows)
-            l_pre = _bucket(max(pre_max, 1), self.len_buckets)
-            if l_pre + suf_max > l_total:
-                l_pre = max(pre_max, 1)
-            l_suf = l_total - l_pre
-            if l_suf < suf_max or l_suf < 1:
+        with span("engine.prepare"):
+            grp = prefix_mod.group_shared_prefixes(chunk)
+            if grp is None:
                 return None
-        # The prefix batch is the true group count, not a batch bucket.
-        pids, pmask, _, _ = self._pad_batch(pre_rows, b_cap=len(pre_rows), l_force=l_pre)
-        sids, smask, n, B = self._pad_batch(suf_rows, b_cap=b_cap, l_force=l_suf)
-        gvec = np.zeros((B,), np.int64)
-        gvec[: len(gidx)] = gidx
-        return (n, self._to_device(pids, pmask, gvec, sids, smask),
-                (pre_rows, pids.shape[1], sids.shape[1]))
+            pre_rows, gidx, suf_rows = grp
+            # Prefix and suffix are padded separately, so the plain path's
+            # context cap cannot see the combined length: rows that would
+            # exceed it take the ungrouped path, which truncates them.
+            cap = self._ctx_cap()
+            if cap and any(len(pre_rows[g]) + len(s) > cap for g, s in zip(gidx, suf_rows)):
+                return None
+            l_pre = l_suf = None
+            if l_total is not None:
+                # A ladder rung for the prefix, or its exact length where the
+                # rung leaves the suffixes too little of the total.
+                pre_max = max((len(p) for p in pre_rows), default=0)
+                suf_max = max(len(r) for r in suf_rows)
+                l_pre = _bucket(max(pre_max, 1), self.len_buckets)
+                if l_pre + suf_max > l_total:
+                    l_pre = max(pre_max, 1)
+                l_suf = l_total - l_pre
+                if l_suf < suf_max or l_suf < 1:
+                    return None
+            # The prefix batch is the true group count, not a batch bucket.
+            pids, pmask, _, _ = self._pad_batch(pre_rows, b_cap=len(pre_rows), l_force=l_pre)
+            sids, smask, n, B = self._pad_batch(suf_rows, b_cap=b_cap, l_force=l_suf,
+                                                n_real=n_real)
+            gvec = np.zeros((B,), np.int64)
+            gvec[: len(gidx)] = gidx
+            return (n, self._to_device(pids, pmask, gvec, sids, smask),
+                    (pre_rows, pids.shape[1], sids.shape[1]))
 
     def _pkv_assemble(self, pre_rows: List[List[int]], Lp: int):
         """Cross-wave prefix-KV cache lookup and fill for one wave.
@@ -406,26 +428,29 @@ class ScoringEngine:
         the cache dedups the prefix forward across dispatches."""
         if self._pkv_budget <= 0:
             return None
-        keys = [tuple(p) for p in pre_rows]
-        got: Dict[int, Any] = {}
-        misses: List[int] = []
-        for g, key in enumerate(keys):
-            e = self._pkv.get(key)
-            if e is None:
-                misses.append(g)
-            else:
-                self._pkv.move_to_end(key)
-                got[g] = (e[0], e[1])
-        self.pkv_stats["hits"] += len(got)
-        self.pkv_stats["misses"] += len(misses)
+        with span("engine.prepare"):
+            keys = [tuple(p) for p in pre_rows]
+            got: Dict[int, Any] = {}
+            misses: List[int] = []
+            for g, key in enumerate(keys):
+                e = self._pkv.get(key)
+                if e is None:
+                    misses.append(g)
+                else:
+                    self._pkv.move_to_end(key)
+                    got[g] = (e[0], e[1])
+            self.pkv_stats["hits"] += len(got)
+            self.pkv_stats["misses"] += len(misses)
         if misses:
             mids, mmask, _, _ = self._pad_batch(
                 [pre_rows[g] for g in misses], b_cap=len(misses), l_force=Lp)
-            self.programs["prefix_kv"] += 1
-            ks_m, vs_m = gen_mod.decoder_prefix_kv(self.model, *self._to_device(mids, mmask))
-            for j, g in enumerate(misses):
-                got[g] = self._pkv_put(keys[g], ks_m[:, j], vs_m[:, j])
-            self._pkv_evict()
+            with span("engine.launch"):
+                self.programs["prefix_kv"] += 1
+                ks_m, vs_m = gen_mod.decoder_prefix_kv(self.model,
+                                                       *self._to_device(mids, mmask))
+                for j, g in enumerate(misses):
+                    got[g] = self._pkv_put(keys[g], ks_m[:, j], vs_m[:, j])
+                self._pkv_evict()
         ks_list, vs_list = [], []
         for g in range(len(pre_rows)):
             ek, ev = got[g]
@@ -477,20 +502,22 @@ class ScoringEngine:
                    prefix: Tuple[int, ...]) -> torch.Tensor:
         """``t5_labels``: encode, decode the forced prefix, label logits at
         its last position, fp32 [B, K]."""
-        self.programs["t5_labels"] += 1
-        ids_t, mask_t = self._to_device(ids, mask)
-        pref = torch.tensor(prefix, device=self.device).expand(ids.shape[0], -1)
-        enc_out = self.model.encode(ids_t, mask_t)
-        hidden = self.model.decode_hidden(pref, enc_out, mask_t)
-        return self.model.label_logits(hidden[:, -1, :], labels).float()
+        with span("engine.launch"):
+            self.programs["t5_labels"] += 1
+            ids_t, mask_t = self._to_device(ids, mask)
+            pref = torch.tensor(prefix, device=self.device).expand(ids.shape[0], -1)
+            enc_out = self.model.encode(ids_t, mask_t)
+            hidden = self.model.decode_hidden(pref, enc_out, mask_t)
+            return self.model.label_logits(hidden[:, -1, :], labels).float()
 
     def _dec_labels(self, ids: np.ndarray, mask: np.ndarray,
                     labels: torch.Tensor) -> torch.Tensor:
         """``dec_labels``: a left-padded forward; the last position is each
         row's last real token."""
-        self.programs["dec_labels"] += 1
-        hidden, _ = self.model.forward_hidden(*self._to_device(ids, mask))
-        return self.model.label_logits(hidden[:, -1, :], labels).float()
+        with span("engine.launch"):
+            self.programs["dec_labels"] += 1
+            hidden, _ = self.model.forward_hidden(*self._to_device(ids, mask))
+            return self.model.label_logits(hidden[:, -1, :], labels).float()
 
     def _dec_labels_on(self, ks, vs, pmask, gidx, sids, smask, labels) -> torch.Tensor:
         """Rows gather their group's prefix K/V and prefill their suffixes."""
@@ -502,14 +529,16 @@ class ScoringEngine:
     def _dec_labels_shared(self, pids, pmask, gidx, sids, smask, labels) -> torch.Tensor:
         """``dec_labels_shared``: the unique prefixes' forward, then the
         suffixes on top of it."""
-        self.programs["dec_labels_shared"] += 1
-        ks, vs = gen_mod.decoder_prefix_kv(self.model, pids, pmask)
-        return self._dec_labels_on(ks, vs, pmask, gidx, sids, smask, labels)
+        with span("engine.launch"):
+            self.programs["dec_labels_shared"] += 1
+            ks, vs = gen_mod.decoder_prefix_kv(self.model, pids, pmask)
+            return self._dec_labels_on(ks, vs, pmask, gidx, sids, smask, labels)
 
     def _dec_labels_pre(self, ks, vs, pmask, gidx, sids, smask, labels) -> torch.Tensor:
         """``dec_labels_pre``: the suffixes on cache-assembled prefix K/V."""
-        self.programs["dec_labels_pre"] += 1
-        return self._dec_labels_on(ks, vs, pmask, gidx, sids, smask, labels)
+        with span("engine.launch"):
+            self.programs["dec_labels_pre"] += 1
+            return self._dec_labels_on(ks, vs, pmask, gidx, sids, smask, labels)
 
     # ------------------------------------------------------------------
     # score_labels: one forward, label-token logits
@@ -528,35 +557,37 @@ class ScoringEngine:
         token (``decoder_prefix`` is not used there)."""
         if adapter is not None or row_adapters is not None:
             raise NotImplementedError("LoRA adapters are not ported yet (ROADMAP A10)")
-        out = np.zeros((len(prompt_rows), len(label_ids)), np.float32)
-        labels = torch.tensor([int(x) for x in label_ids], device=self.device)
-        prefix = tuple(int(x) for x in decoder_prefix)
-        if self.kind == "t5" and not prefix:
-            prefix = (int(self.cfg.decoder_start_token_id),)
-        # Enqueue every chunk before reading any back, so host padding of
-        # chunk i+1 overlaps device compute of chunk i.
-        pending = []
-        with torch.inference_mode():
-            for off, chunk in self._chunks(prompt_rows):
-                if self.kind == "t5":
-                    ids, mask, n, _ = self._pad_batch(chunk)
-                    pending.append((off, n, self._t5_labels(ids, mask, labels, prefix)))
-                    continue
-                grp = self._group(chunk)
-                if grp is None:
-                    ids, mask, n, _ = self._pad_batch(chunk, left=True)
-                    res = self._dec_labels(ids, mask, labels)
-                else:
-                    n, args, host = grp
-                    pre = self._pkv_assemble(host[0], args[0].shape[1])
-                    if pre is None:
-                        res = self._dec_labels_shared(*args, labels)
+        with span("engine.call"):
+            out = np.zeros((len(prompt_rows), len(label_ids)), np.float32)
+            labels = torch.tensor([int(x) for x in label_ids], device=self.device)
+            prefix = tuple(int(x) for x in decoder_prefix)
+            if self.kind == "t5" and not prefix:
+                prefix = (int(self.cfg.decoder_start_token_id),)
+            # Enqueue every chunk before reading any back, so host padding of
+            # chunk i+1 overlaps device compute of chunk i.
+            pending = []
+            with torch.inference_mode():
+                for off, chunk in self._chunks(prompt_rows):
+                    if self.kind == "t5":
+                        ids, mask, n, _ = self._pad_batch(chunk)
+                        pending.append((off, n, self._t5_labels(ids, mask, labels, prefix)))
+                        continue
+                    grp = self._group(chunk)
+                    if grp is None:
+                        ids, mask, n, _ = self._pad_batch(chunk, left=True)
+                        res = self._dec_labels(ids, mask, labels)
                     else:
-                        res = self._dec_labels_pre(*pre, *args[1:], labels)
-                pending.append((off, n, res))
-            for off, n, res in pending:
-                out[off: off + n] = res[:n].cpu().numpy()
-        return out
+                        n, args, host = grp
+                        pre = self._pkv_assemble(host[0], args[0].shape[1])
+                        if pre is None:
+                            res = self._dec_labels_shared(*args, labels)
+                        else:
+                            res = self._dec_labels_pre(*pre, *args[1:], labels)
+                    pending.append((off, n, res))
+                with span("engine.readback"):
+                    for off, n, res in pending:
+                        out[off: off + n] = res[:n].cpu().numpy()
+            return out
 
     # ------------------------------------------------------------------
     # generate: greedy (or sampled) decoding on a KV cache
@@ -595,101 +626,105 @@ class ScoringEngine:
             raise NotImplementedError("T5 generation is not ported yet (ROADMAP A6)")
         if adapter is not None or row_adapters is not None:
             raise NotImplementedError("LoRA adapters are not ported yet (ROADMAP A10)")
-        sampling = None
-        if temperature and temperature > 0.0:
-            if self.spec_lookup:
-                raise ValueError("temperature sampling is incompatible with "
-                                 "spec_lookup (speculative acceptance is greedy)")
-            sampling = (float(temperature), 0 if seed is None else int(seed))
-        results: List[str] = [""] * len(prompt_rows)
-        ntokens: List[int] = [0] * len(prompt_rows)
-        if chunk_tokens is None and max_new_tokens >= 512:
-            chunk_tokens = 256
-        if sampling is not None and chunk_tokens is None:
-            chunk_tokens = max_new_tokens  # sampling rides the chunked loop
-        if not prompt_rows:
-            return results, ntokens
-        row_limit = self._gen_row_limit(prompt_rows, max_new_tokens)
-        # The engine's learned cap for this shape family: the estimate
-        # above is an estimate, a device OOM is ground truth.
-        L_key = self._cap_len(_bucket(max(len(r) for r in prompt_rows), self.len_buckets), 0)
-        cap_key = ("gen", self.kind, L_key, max_new_tokens)
-        learned = self._learned_row_caps.get(cap_key)
-        if learned is not None:
-            row_limit = min(row_limit, learned)
+        with span("engine.call"):
+            sampling = None
+            if temperature and temperature > 0.0:
+                if self.spec_lookup:
+                    raise ValueError("temperature sampling is incompatible with "
+                                     "spec_lookup (speculative acceptance is greedy)")
+                sampling = (float(temperature), 0 if seed is None else int(seed))
+            results: List[str] = [""] * len(prompt_rows)
+            ntokens: List[int] = [0] * len(prompt_rows)
+            if chunk_tokens is None and max_new_tokens >= 512:
+                chunk_tokens = 256
+            if sampling is not None and chunk_tokens is None:
+                chunk_tokens = max_new_tokens  # sampling rides the chunked loop
+            if not prompt_rows:
+                return results, ntokens
+            with span("engine.prepare"):
+                row_limit = self._gen_row_limit(prompt_rows, max_new_tokens)
+                # The engine's learned cap for this shape family: the estimate
+                # above is an estimate, a device OOM is ground truth.
+                L_key = self._cap_len(_bucket(max(len(r) for r in prompt_rows),
+                                              self.len_buckets), 0)
+                cap_key = ("gen", self.kind, L_key, max_new_tokens)
+                learned = self._learned_row_caps.get(cap_key)
+                if learned is not None:
+                    row_limit = min(row_limit, learned)
+                queue = list(self._chunks(prompt_rows, row_limit))
 
-        def emit(off: int, toks: np.ndarray) -> None:
-            # Frozen rows are filled with cfg.pad_token_id, which may differ
-            # from the tokenizer's pad: strip both.
-            pad_ids = {self.tokenizer.pad_id, int(self.cfg.pad_token_id)}
-            for i, row in enumerate(toks):
-                row_l = row.tolist()
-                # Count up to and including EOS; trailing pad filler of rows
-                # frozen early does not count.
-                try:
-                    ntok = row_l.index(self.tokenizer.eos_id) + 1
-                except ValueError:
-                    ntok = len(row_l)
-                    while ntok > 0 and row_l[ntok - 1] in pad_ids:
-                        ntok -= 1
-                ntokens[off + i] = ntok
-                text = self.tokenizer.decode(row_l[:ntok], skip_special_tokens=True)
-                for stop in stop_strings:
-                    cut = text.find(stop)
-                    if cut != -1:
-                        text = text[: cut + len(stop)]
-                results[off + i] = text
+            def emit(off: int, toks: np.ndarray) -> None:
+                with span("engine.emit"):
+                    # Frozen rows are filled with cfg.pad_token_id, which may differ
+                    # from the tokenizer's pad: strip both.
+                    pad_ids = {self.tokenizer.pad_id, int(self.cfg.pad_token_id)}
+                    for i, row in enumerate(toks):
+                        row_l = row.tolist()
+                        # Count up to and including EOS; trailing pad filler of rows
+                        # frozen early does not count.
+                        try:
+                            ntok = row_l.index(self.tokenizer.eos_id) + 1
+                        except ValueError:
+                            ntok = len(row_l)
+                            while ntok > 0 and row_l[ntok - 1] in pad_ids:
+                                ntok -= 1
+                        ntokens[off + i] = ntok
+                        text = self.tokenizer.decode(row_l[:ntok], skip_special_tokens=True)
+                        for stop in stop_strings:
+                            cut = text.find(stop)
+                            if cut != -1:
+                                text = text[: cut + len(stop)]
+                        results[off + i] = text
 
-        queue = list(self._chunks(prompt_rows, row_limit))
-        # Several dispatches, chunked: one slot-refill session serves them
-        # all, finished rows' slots prefilled again from pending rows at
-        # chunk boundaries. A device OOM halves the rows per dispatch and
-        # runs the whole session again.
-        if (len(queue) > 1 and chunk_tokens and chunk_tokens < max_new_tokens
-                and os.environ.get("LLMRANKERS_NO_REFILL") != "1"):
+            # Several dispatches, chunked: one slot-refill session serves them
+            # all, finished rows' slots prefilled again from pending rows at
+            # chunk boundaries. A device OOM halves the rows per dispatch and
+            # runs the whole session again.
+            if (len(queue) > 1 and chunk_tokens and chunk_tokens < max_new_tokens
+                    and os.environ.get("LLMRANKERS_NO_REFILL") != "1"):
+                with torch.inference_mode():
+                    while True:
+                        try:
+                            toks = self._generate_refill(prompt_rows, max_new_tokens,
+                                                         stop_strings, chunk_tokens, row_limit,
+                                                         sampling=sampling)
+                            break
+                        except Exception as e:
+                            if row_limit <= 1 or not _is_oom(e):
+                                raise
+                            row_limit = self._halve_cap(row_limit)
+                            self._learned_row_caps[cap_key] = row_limit
+                            logger.warning(
+                                "device OOM in refill session (L=%d max_new=%d); backing off "
+                                "to %d rows/dispatch", L_key, max_new_tokens, row_limit)
+                            torch.cuda.empty_cache()
+                emit(0, toks)
+                return results, ntokens
             with torch.inference_mode():
-                while True:
+                while queue:
+                    off, chunk = queue.pop(0)
                     try:
-                        toks = self._generate_refill(prompt_rows, max_new_tokens,
-                                                     stop_strings, chunk_tokens, row_limit,
-                                                     sampling=sampling)
-                        break
-                    except Exception as e:
-                        if row_limit <= 1 or not _is_oom(e):
+                        toks = self._generate_dispatch(
+                            chunk, max_new_tokens, stop_strings, chunk_tokens, row_limit,
+                            # A sample stream per dispatch chunk, keyed by its row
+                            # offset in the wave.
+                            sampling=((sampling[0], gen_mod._fold(sampling[1], off))
+                                      if sampling else None))
+                    except Exception as e:  # halve and retry on a device OOM
+                        if len(chunk) == 1 or not _is_oom(e):
                             raise
-                        row_limit = self._halve_cap(row_limit)
+                        row_limit = self._halve_cap(len(chunk))
                         self._learned_row_caps[cap_key] = row_limit
                         logger.warning(
-                            "device OOM in refill session (L=%d max_new=%d); backing off "
-                            "to %d rows/dispatch", L_key, max_new_tokens, row_limit)
+                            "device OOM at %d generate rows (L=%d max_new=%d); backing "
+                            "off to %d rows/dispatch", len(chunk), L_key, max_new_tokens,
+                            row_limit)
                         torch.cuda.empty_cache()
-            emit(0, toks)
+                        queue = [(off + i, sub) for i, sub in self._chunks(chunk, row_limit)
+                                 ] + queue
+                        continue
+                    emit(off, toks)
             return results, ntokens
-        with torch.inference_mode():
-            while queue:
-                off, chunk = queue.pop(0)
-                try:
-                    toks = self._generate_dispatch(
-                        chunk, max_new_tokens, stop_strings, chunk_tokens, row_limit,
-                        # A sample stream per dispatch chunk, keyed by its row
-                        # offset in the wave.
-                        sampling=((sampling[0], gen_mod._fold(sampling[1], off))
-                                  if sampling else None))
-                except Exception as e:  # halve and retry on a device OOM
-                    if len(chunk) == 1 or not _is_oom(e):
-                        raise
-                    row_limit = self._halve_cap(len(chunk))
-                    self._learned_row_caps[cap_key] = row_limit
-                    logger.warning(
-                        "device OOM at %d generate rows (L=%d max_new=%d); backing "
-                        "off to %d rows/dispatch", len(chunk), L_key, max_new_tokens,
-                        row_limit)
-                    torch.cuda.empty_cache()
-                    queue = [(off + i, sub) for i, sub in self._chunks(chunk, row_limit)
-                             ] + queue
-                    continue
-                emit(off, toks)
-        return results, ntokens
 
     def _generate_dispatch(self, chunk: List[List[int]], max_new_tokens: int,
                            stop_strings: Sequence[str], chunk_tokens: Optional[int],
@@ -712,22 +747,25 @@ class ScoringEngine:
             # Cross-wave prefix cache: cache-assembled prefix K/V instead of
             # the prefix forward (the *_pre programs).
             pre = self._pkv_assemble(host[0], pids.shape[1])
-            if pre is not None:
-                ks, vs = pre
-                suffix = "_pre"
-            else:
-                ks, vs = gen_mod.decoder_prefix_kv(self.model, pids, pmask)
-                suffix = "_shared"
-            last_h, cache = gen_mod.decoder_shared_prefill(
-                self.model, ks.index_select(1, gidx), vs.index_select(1, gidx),
-                pmask.index_select(0, gidx), sids, smask, mn_pad, kv_quant=kvq)
-            logits = self.model.lm_logits(last_h)
+            with span("engine.launch"):
+                if pre is not None:
+                    ks, vs = pre
+                    suffix = "_pre"
+                else:
+                    ks, vs = gen_mod.decoder_prefix_kv(self.model, pids, pmask)
+                    suffix = "_shared"
+                last_h, cache = gen_mod.decoder_shared_prefill(
+                    self.model, ks.index_select(1, gidx), vs.index_select(1, gidx),
+                    pmask.index_select(0, gidx), sids, smask, mn_pad, kv_quant=kvq)
+                logits = self.model.lm_logits(last_h)
             hist_args = ("shared", (pids, pmask, gidx, sids, smask))
         else:
             ids, mask, n, B = self._pad_batch(chunk, left=True, b_cap=row_limit)
             prompt_len = ids.shape[1]
             ids, mask = self._to_device(ids, mask)
-            logits, cache = gen_mod.decoder_prefill(self.model, ids, mask, mn_pad, kv_quant=kvq)
+            with span("engine.launch"):
+                logits, cache = gen_mod.decoder_prefill(self.model, ids, mask, mn_pad,
+                                                        kv_quant=kvq)
             suffix = ""
             hist_args = ("plain", (ids, mask))
         eos = int(self.cfg.eos_token_id)
@@ -752,7 +790,8 @@ class ScoringEngine:
         first = torch.argmax(logits, dim=-1)
         out = gen_mod.decoder_greedy_decode(self.model, first, cache, prompt_len,
                                             max_new_tokens, eos)
-        return out[:n].cpu().numpy()
+        with span("engine.readback"):
+            return out[:n].cpu().numpy()
 
     def _decode_chunked(self, tok, cache, B: int, prompt_len: int, n: int,
                         max_new_tokens: int, chunk_tokens: int,
@@ -781,21 +820,27 @@ class ScoringEngine:
             if pipelined:
                 prev, pending = pending, (out, done)
                 if prev is not None:
-                    pieces.append(prev[0].cpu().numpy())
-                    if bool(prev[1].all()):
+                    with span("engine.readback"):
+                        pieces.append(prev[0].cpu().numpy())
+                        all_done = bool(prev[1].all())
+                    if all_done:
                         break  # the chunk just enqueued is all pad filler
                 continue
-            pieces.append(out.cpu().numpy())
+            with span("engine.readback"):
+                pieces.append(out.cpu().numpy())
             if offset >= max_new_tokens:
                 break
+            with span("engine.readback"):
+                done_h = done.cpu().numpy()
             acc = np.concatenate(pieces, axis=1)
-            newly = self._host_freeze(done.cpu().numpy(), lambda i: acc[i].tolist(), n, B,
+            newly = self._host_freeze(done_h, lambda i: acc[i].tolist(), n, B,
                                       None, stop_strings)
             if all(newly):
                 break
             done = torch.tensor(newly, dtype=torch.bool, device=self.device)
         if pending is not None:
-            pieces.append(pending[0].cpu().numpy())
+            with span("engine.readback"):
+                pieces.append(pending[0].cpu().numpy())
         out = np.concatenate(pieces, axis=1)
         if out.shape[1] < max_new_tokens:
             out = np.pad(out, ((0, 0), (0, max_new_tokens - out.shape[1])),
@@ -819,16 +864,18 @@ class ScoringEngine:
         hist[:, :prompt.shape[1]] = prompt
         return hist
 
-    def _rr_prep(self, batch: List[List[int]], b_cap: int, P: int):
+    def _rr_prep(self, batch: List[List[int]], b_cap: int, P: int,
+                 n_real: Optional[int] = None):
         """Pad a batch to a refill session's layout, a prompt area of exactly
         ``P`` positions: shared prefixes where they pay and fit, else left
-        padding. Returns (kind, device args, n real rows, host info or
-        None)."""
-        grp = self._group(batch, b_cap=b_cap, l_total=P)
+        padding. Rows past ``n_real`` are padding rows. Returns (kind,
+        device args, n rows, host info or None)."""
+        grp = self._group(batch, b_cap=b_cap, l_total=P, n_real=n_real)
         if grp is not None:
             n, args, host = grp
             return "shared", args, n, host
-        ids, mask, n, _ = self._pad_batch(batch, left=True, b_cap=b_cap, l_force=P)
+        ids, mask, n, _ = self._pad_batch(batch, left=True, b_cap=b_cap, l_force=P,
+                                          n_real=n_real)
         return "plain", self._to_device(ids, mask), n, None
 
     def _rr_prep_pre(self, batch: List[List[int]], n_real: int, Br: int, host):
@@ -838,21 +885,22 @@ class ScoringEngine:
         fits whole). Returns device (gidx, sids, smask), or None when a row
         matches none. Rows past ``n_real`` are padding: group 0, a pad
         suffix, and a slot out of range, so their result is dropped."""
-        pre_rows, _, Ls = host
-        order = sorted(range(len(pre_rows)), key=lambda g: -len(pre_rows[g]))
-        gidx = np.zeros((Br,), np.int64)
-        sufs: List[List[int]] = []
-        for j, row in enumerate(batch[:n_real]):
-            g = next((gi for gi in order
-                      if len(pre_rows[gi]) < len(row) <= len(pre_rows[gi]) + Ls
-                      and row[:len(pre_rows[gi])] == pre_rows[gi]), None)
-            if g is None:
-                return None
-            gidx[j] = g
-            sufs.append(row[len(pre_rows[g]):])
-        sufs += [[self.tokenizer.pad_id]] * (Br - n_real)
-        sids, smask, _, _ = self._pad_batch(sufs, b_cap=Br, l_force=Ls)
-        return self._to_device(gidx, sids, smask)
+        with span("engine.prepare"):
+            pre_rows, _, Ls = host
+            order = sorted(range(len(pre_rows)), key=lambda g: -len(pre_rows[g]))
+            gidx = np.zeros((Br,), np.int64)
+            sufs: List[List[int]] = []
+            for j, row in enumerate(batch[:n_real]):
+                g = next((gi for gi in order
+                          if len(pre_rows[gi]) < len(row) <= len(pre_rows[gi]) + Ls
+                          and row[:len(pre_rows[gi])] == pre_rows[gi]), None)
+                if g is None:
+                    return None
+                gidx[j] = g
+                sufs.append(row[len(pre_rows[g]):])
+            sufs += [[self.tokenizer.pad_id]] * (Br - n_real)
+            sids, smask, _, _ = self._pad_batch(sufs, b_cap=Br, l_force=Ls, n_real=n_real)
+            return self._to_device(gidx, sids, smask)
 
     def _generate_refill(self, rows: List[List[int]], max_new: int,
                          stop_strings: Sequence[str], chunk_tokens: int, row_limit: int,
@@ -903,26 +951,29 @@ class ScoringEngine:
             pids, pmask, gidx, sids, smask = args0
             B = sids.shape[0]
             pre = self._pkv_assemble(sess_host[0], pids.shape[1])
-            if pre is not None:
-                ks, vs = pre
-                self.programs["dec_prefill_pre"] += 1
-            else:
-                ks, vs = gen_mod.decoder_prefix_kv(self.model, pids, pmask)
-                self.programs["rr_prefill_shared"] += 1
-                self._pkv_insert(sess_host[0], ks, vs)
-            last_h, cache = gen_mod.decoder_shared_prefill(
-                self.model, ks.index_select(1, gidx), vs.index_select(1, gidx),
-                pmask.index_select(0, gidx), sids, smask, mn_pad, kv_quant=kvq)
-            tok = gen_mod._pick(self.model.lm_logits(last_h), temperature, k_pref)
+            with span("engine.launch"):
+                if pre is not None:
+                    ks, vs = pre
+                    self.programs["dec_prefill_pre"] += 1
+                else:
+                    ks, vs = gen_mod.decoder_prefix_kv(self.model, pids, pmask)
+                    self.programs["rr_prefill_shared"] += 1
+                    self._pkv_insert(sess_host[0], ks, vs)
+                last_h, cache = gen_mod.decoder_shared_prefill(
+                    self.model, ks.index_select(1, gidx), vs.index_select(1, gidx),
+                    pmask.index_select(0, gidx), sids, smask, mn_pad, kv_quant=kvq)
+                tok = gen_mod._pick(self.model.lm_logits(last_h), temperature, k_pref)
             # Kept for the session: refill rows that extend these prefixes
             # run only their suffixes.
             sess_kv = (ks, vs, pmask, pids)
         else:
             ids, mask = args0
             B = ids.shape[0]
-            self.programs["dec_prefill"] += 1
-            logits, cache = gen_mod.decoder_prefill(self.model, ids, mask, mn_pad, kv_quant=kvq)
-            tok = gen_mod._pick(logits, temperature, k_pref)
+            with span("engine.launch"):
+                self.programs["dec_prefill"] += 1
+                logits, cache = gen_mod.decoder_prefill(self.model, ids, mask, mn_pad,
+                                                        kv_quant=kvq)
+                tok = gen_mod._pick(logits, temperature, k_pref)
         pending = list(range(n0, N))
         Br = min(B, max(1, B // 4))
         wp = torch.full((B,), P, dtype=torch.long, device=self.device)
@@ -943,43 +994,47 @@ class ScoringEngine:
                 self.programs["dec_spec_chunk"] += 1
                 outs, counts, (tok, cache, hist, wp, done) = gen_mod.decoder_spec_decode_chunk(
                     self.model, tok, cache, hist, wp, P, max_new, rounds, K, eos, done=done)
-                out_h, cnt_h = outs.cpu().numpy(), counts.cpu().numpy()
+                with span("engine.readback"):
+                    out_h, cnt_h = outs.cpu().numpy(), counts.cpu().numpy()
             else:
                 self.programs["dec_chunk_rr"] += 1
                 out, (tok, cache, wp, done) = gen_mod.decoder_decode_chunk_rr(
                     self.model, tok, cache, wp, P, max_new, chunk_tokens, eos, done,
                     temperature=temperature, key=k_dec, step0=chunk_no * chunk_tokens)
-                out_h = out.cpu().numpy()
-            done_np, wp_h = done.cpu().numpy().copy(), wp.cpu().numpy()
-            host_froze = False
-            finished: List[int] = []
-            for s in range(B):
-                if slot_rows[s] is None:
-                    continue
-                if spec:
-                    kept = _spec_stitch(acc[s], out_h[s], cnt_h[s], max_new)
-                    spec_tokens, spec_rounds = spec_tokens + kept[0], spec_rounds + kept[1]
-                else:
-                    acc[s].extend(out_h[s].tolist())
-                fin = bool(done_np[s]) or int(wp_h[s]) - P >= max_new
-                # The device freezes on the model's EOS; the host on the
-                # tokenizer's where it differs, and on stop strings.
-                if (not fin and self.tokenizer.eos_id != eos
-                        and self.tokenizer.eos_id in acc[s][:max_new]):
-                    fin = host_froze = done_np[s] = True
-                if not fin and stop_strings:
-                    text = self.tokenizer.decode(acc[s][:max_new], skip_special_tokens=True)
-                    if any(st in text for st in stop_strings):
+                with span("engine.readback"):
+                    out_h = out.cpu().numpy()
+            with span("engine.readback"):
+                done_np, wp_h = done.cpu().numpy().copy(), wp.cpu().numpy()
+            with span("engine.emit"):
+                host_froze = False
+                finished: List[int] = []
+                for s in range(B):
+                    if slot_rows[s] is None:
+                        continue
+                    if spec:
+                        kept = _spec_stitch(acc[s], out_h[s], cnt_h[s], max_new)
+                        spec_tokens, spec_rounds = spec_tokens + kept[0], spec_rounds + kept[1]
+                    else:
+                        acc[s].extend(out_h[s].tolist())
+                    fin = bool(done_np[s]) or int(wp_h[s]) - P >= max_new
+                    # The device freezes on the model's EOS; the host on the
+                    # tokenizer's where it differs, and on stop strings.
+                    if (not fin and self.tokenizer.eos_id != eos
+                            and self.tokenizer.eos_id in acc[s][:max_new]):
                         fin = host_froze = done_np[s] = True
-                if fin:
-                    finished.append(s)
-            for s in finished:
-                row = acc[s][:max_new]
-                out_mat[slot_rows[s], :len(row)] = row
-                slot_rows[s], acc[s] = None, []
-                live -= 1
-            if host_froze:
-                done = torch.from_numpy(done_np).to(self.device)
+                    if not fin and stop_strings:
+                        text = self.tokenizer.decode(acc[s][:max_new], skip_special_tokens=True)
+                        if any(st in text for st in stop_strings):
+                            fin = host_froze = done_np[s] = True
+                    if fin:
+                        finished.append(s)
+                for s in finished:
+                    row = acc[s][:max_new]
+                    out_mat[slot_rows[s], :len(row)] = row
+                    slot_rows[s], acc[s] = None, []
+                    live -= 1
+                if host_froze:
+                    done = torch.from_numpy(done_np).to(self.device)
             free = [s for s in range(B) if slot_rows[s] is None]
             # Wait for a full refill batch of free slots (bounds the prefill
             # transient and the per-refill cost) unless no row is live.
@@ -995,22 +1050,24 @@ class ScoringEngine:
                        if sess_kv is not None else None)
                 if pre is not None:
                     gidx_r, sids_r, smask_r = pre
-                    self.programs["rr_refill_pre"] += 1
-                    tok, cache, wp, done = gen_mod.decoder_refill_slots_pre(
-                        self.model, cache, tok, wp, done, *sess_kv[:3], gidx_r, sids_r, smask_r,
-                        slots, temperature, key)
+                    with span("engine.launch"):
+                        self.programs["rr_refill_pre"] += 1
+                        tok, cache, wp, done = gen_mod.decoder_refill_slots_pre(
+                            self.model, cache, tok, wp, done, *sess_kv[:3], gidx_r, sids_r,
+                            smask_r, slots, temperature, key)
                     pre_hits += 1
                     kindr, argsr = "shared", (sess_kv[3], sess_kv[2], gidx_r, sids_r, smask_r)
                 else:
-                    kindr, argsr, _, _ = self._rr_prep(batch, Br, P)
+                    kindr, argsr, _, _ = self._rr_prep(batch, Br, P, n_real=k)
                     if kindr == "shared":
                         self.programs["rr_refill_shared"] += 1
                         refill = gen_mod.decoder_refill_slots_shared
                     else:
                         self.programs["rr_refill"] += 1
                         refill = gen_mod.decoder_refill_slots
-                    tok, cache, wp, done = refill(self.model, cache, tok, wp, done, *argsr,
-                                                  slots, temperature, key)
+                    with span("engine.launch"):
+                        tok, cache, wp, done = refill(self.model, cache, tok, wp, done, *argsr,
+                                                      slots, temperature, key)
                 if spec:
                     gen_mod.scatter_rows(hist, self._spec_history(kindr, argsr, P + mn_pad),
                                          slots)
@@ -1045,11 +1102,14 @@ class ScoringEngine:
         rows_out: List[List[int]] = [[] for _ in range(B)]
         kept = [0, 0]  # tokens the budget keeps, rounds that kept any
 
-        def stitch(outs_h, counts_h):
-            for b in range(n):
-                t, r = _spec_stitch(rows_out[b], outs_h[b], counts_h[b], max_new_tokens)
-                kept[0] += t
-                kept[1] += r
+        def stitch(outs, counts):
+            with span("engine.readback"):
+                outs_h, counts_h = outs.cpu().numpy(), counts.cpu().numpy()
+            with span("engine.emit"):
+                for b in range(n):
+                    t, r = _spec_stitch(rows_out[b], outs_h[b], counts_h[b], max_new_tokens)
+                    kept[0] += t
+                    kept[1] += r
 
         pipelined = not stop_strings and self.tokenizer.eos_id == eos
         pending = None  # (outs, counts, frozen) of the chunk enqueued last
@@ -1065,18 +1125,22 @@ class ScoringEngine:
                 frozen = done_dev | (wp - prompt_len >= max_new_tokens)
                 prev, pending = pending, (outs, counts, frozen)
                 if prev is not None:
-                    stitch(prev[0].cpu().numpy(), prev[1].cpu().numpy())
-                    if bool(prev[2].all()):
+                    stitch(prev[0], prev[1])
+                    with span("engine.readback"):
+                        all_frozen = bool(prev[2].all())
+                    if all_frozen:
                         break
                 continue
-            stitch(outs.cpu().numpy(), counts.cpu().numpy())
-            newly = self._host_freeze(done_dev.cpu().numpy(), lambda i: rows_out[i], n, B,
+            stitch(outs, counts)
+            with span("engine.readback"):
+                done_h = done_dev.cpu().numpy()
+            newly = self._host_freeze(done_h, lambda i: rows_out[i], n, B,
                                       max_new_tokens, stop_strings)
             if all(newly):
                 break
             done = torch.tensor(newly, dtype=torch.bool, device=self.device)
         if pending is not None:
-            stitch(pending[0].cpu().numpy(), pending[1].cpu().numpy())
+            stitch(pending[0], pending[1])
         self.spec_stats["tokens"] += kept[0]
         self.spec_stats["rounds"] += kept[1]
         out = np.full((n, max_new_tokens), self.tokenizer.pad_id, np.int64)
@@ -1091,24 +1155,25 @@ class ScoringEngine:
         """Between-chunk freeze decisions: a live row freezes on the
         tokenizer's EOS, a decoded stop string, or (when given) a spent
         budget; padding rows are always frozen."""
-        eos = self.tokenizer.eos_id
-        newly = [bool(d) for d in done_h]
-        for i in range(n):
-            if newly[i]:
-                continue
-            row = row_tokens(i)
-            if max_new_tokens is not None and len(row) >= max_new_tokens:
+        with span("engine.emit"):
+            eos = self.tokenizer.eos_id
+            newly = [bool(d) for d in done_h]
+            for i in range(n):
+                if newly[i]:
+                    continue
+                row = row_tokens(i)
+                if max_new_tokens is not None and len(row) >= max_new_tokens:
+                    newly[i] = True
+                    continue
+                if eos in row:
+                    newly[i] = True
+                    continue
+                text = self.tokenizer.decode(row, skip_special_tokens=True)
+                if any(stop in text for stop in stop_strings):
+                    newly[i] = True
+            for i in range(n, B):
                 newly[i] = True
-                continue
-            if eos in row:
-                newly[i] = True
-                continue
-            text = self.tokenizer.decode(row, skip_special_tokens=True)
-            if any(stop in text for stop in stop_strings):
-                newly[i] = True
-        for i in range(n, B):
-            newly[i] = True
-        return newly
+            return newly
 
     # ------------------------------------------------------------------
     # Not ported yet

@@ -22,6 +22,8 @@ quantized cache on the card that attention is the hand-written kernel
 (:func:`..ops.kvq_attention.kvq_decode_attention`), elsewhere its plain
 version. The decode loop never reads a value back to the host: rows freeze
 on EOS on the device, and the engine checks stop strings between chunks.
+Each step of a decode loop (a verify round under speculation) is the span
+``decode.step`` of ``utils.metering``.
 
 Slot refill (continuous batching): :func:`decoder_decode_chunk_rr` decodes
 with each row appending at its own write position ``wp`` (frozen on the
@@ -46,6 +48,7 @@ from ..models.decoder import Decoder, positions_from_mask
 from ..ops.attention import mha, rms_norm
 from ..ops.kvq_attention import (NEG_INF, _dot, cached_pv, cached_qk, kvq_decode_attention,
                                  kvq_decode_attention_plain)
+from ..utils.metering import span
 
 _M64 = (1 << 64) - 1
 
@@ -389,18 +392,19 @@ def decoder_decode_chunk(
     dtype = _act_dtype(model)
     tok, outs = first_token, []
     for i in range(steps):
-        t = offset + i
-        cos, sin = model.rope(pos[:, None], dtype)
-        logits, k_new, v_new = _decode_token_forward(
-            model, tok, k_cache, v_cache, _window_mask(kmask, pos, win), cos, sin)
-        _cache_put(k_cache, k_new[:, :, :, None, :], L + t)
-        _cache_put(v_cache, v_new[:, :, :, None, :], L + t)
-        kmask[:, L + t] = True
-        nxt = _pick(logits, temperature, None if key is None else _fold(key, t))
-        outs.append(torch.where(done, torch.full_like(tok, pad), tok))
-        done = done | (tok == eos_id)
-        tok = torch.where(done, tok, nxt)
-        pos = pos + 1
+        with span("decode.step"):
+            t = offset + i
+            cos, sin = model.rope(pos[:, None], dtype)
+            logits, k_new, v_new = _decode_token_forward(
+                model, tok, k_cache, v_cache, _window_mask(kmask, pos, win), cos, sin)
+            _cache_put(k_cache, k_new[:, :, :, None, :], L + t)
+            _cache_put(v_cache, v_new[:, :, :, None, :], L + t)
+            kmask[:, L + t] = True
+            nxt = _pick(logits, temperature, None if key is None else _fold(key, t))
+            outs.append(torch.where(done, torch.full_like(tok, pad), tok))
+            done = done | (tok == eos_id)
+            tok = torch.where(done, tok, nxt)
+            pos = pos + 1
     out = torch.stack(outs, dim=1) if outs else first_token.new_zeros((B, 0))
     return out, (tok, (k_cache, v_cache, kmask, pos), done)
 
@@ -457,23 +461,24 @@ def decoder_decode_chunk_rr(
     dtype = _act_dtype(model)
     tok, outs = first_token, []
     for i in range(steps):
-        live = ~done & (wp - prompt_len < max_new_tokens)
-        cos, sin = model.rope(pos[:, None], dtype)
-        logits, k_new, v_new = _decode_token_forward(
-            model, tok, k_cache, v_cache, _window_mask(kmask, pos, win), cos, sin)
-        nxt = _pick(logits, temperature, None if key is None else _fold(key, step0 + i))
-        outs.append(torch.where(live, tok, torch.full_like(tok, pad)))
-        # Frozen rows overwrite their one unused slot with a value their
-        # mask never shows (the mask bit written is False); a row whose
-        # budget is spent has wp == T, and the write clamps to T - 1, a
-        # slot only that frozen row could read.
-        _cache_row_put(k_cache, k_new[:, :, :, None, :], wp)
-        _cache_row_put(v_cache, v_new[:, :, :, None, :], wp)
-        _row_append(kmask, live[:, None], wp)
-        done = done | (live & (tok == eos_id))
-        tok = torch.where(live & ~done, nxt, tok)
-        adv = live.to(wp.dtype)
-        pos, wp = pos + adv, wp + adv
+        with span("decode.step"):
+            live = ~done & (wp - prompt_len < max_new_tokens)
+            cos, sin = model.rope(pos[:, None], dtype)
+            logits, k_new, v_new = _decode_token_forward(
+                model, tok, k_cache, v_cache, _window_mask(kmask, pos, win), cos, sin)
+            nxt = _pick(logits, temperature, None if key is None else _fold(key, step0 + i))
+            outs.append(torch.where(live, tok, torch.full_like(tok, pad)))
+            # Frozen rows overwrite their one unused slot with a value their
+            # mask never shows (the mask bit written is False); a row whose
+            # budget is spent has wp == T, and the write clamps to T - 1, a
+            # slot only that frozen row could read.
+            _cache_row_put(k_cache, k_new[:, :, :, None, :], wp)
+            _cache_row_put(v_cache, v_new[:, :, :, None, :], wp)
+            _row_append(kmask, live[:, None], wp)
+            done = done | (live & (tok == eos_id))
+            tok = torch.where(live & ~done, nxt, tok)
+            adv = live.to(wp.dtype)
+            pos, wp = pos + adv, wp + adv
     out = torch.stack(outs, dim=1) if outs else first_token.new_zeros((first_token.shape[0], 0))
     return out, (tok, (k_cache, v_cache, kmask, pos), wp, done)
 
@@ -678,71 +683,72 @@ def decoder_spec_decode_chunk(
         tri = tri & (rel < win)
     tok, outs, counts = first_token, [], []
     for _ in range(rounds):
-        frozen = done | (wp - L >= max_new_tokens)
-        # -- draft: the last match of the row's last two (three) tokens --
-        p_prev = torch.where(kmask, pos_idx, -1).amax(dim=1)
-        prev = hist.gather(1, p_prev.clamp_min(0)[:, None])[:, 0]
-        prev = torch.where(p_prev >= 0, prev, -1)
-        before = pos_idx < p_prev[:, None]
-        # The last valid position is excluded: a match there is the current
-        # context itself, whose continuation is not generated yet.
-        match = ((hist == tok[:, None]) & (_shift(hist, 1, -1) == prev[:, None])
-                 & kmask & _shift(kmask, 1, False) & before)
-        p_prev2 = torch.where(kmask & before, pos_idx, -1).amax(dim=1)
-        prev2 = hist.gather(1, p_prev2.clamp_min(0)[:, None])[:, 0]
-        prev2 = torch.where(p_prev2 >= 0, prev2, -2)
-        match3 = match & (_shift(hist, 2, -1) == prev2[:, None]) & _shift(kmask, 2, False)
-        p2 = torch.where(match, pos_idx, -1).amax(dim=1)
-        p3 = torch.where(match3, pos_idx, -1).amax(dim=1)
-        p_best = torch.where(p3 >= 0, p3, p2)
-        didx = (p_best[:, None] + 1 + torch.arange(K, device=dev)[None, :]).clamp_max(T - 1)
-        dvalid = kmask.gather(1, didx) & (p_best >= 0)[:, None]
-        drafts = torch.where(dvalid, hist.gather(1, didx), pad).to(tok.dtype)
-        bt = torch.cat([tok[:, None], drafts], dim=1)  # [B, S]
+        with span("decode.step"):
+            frozen = done | (wp - L >= max_new_tokens)
+            # -- draft: the last match of the row's last two (three) tokens --
+            p_prev = torch.where(kmask, pos_idx, -1).amax(dim=1)
+            prev = hist.gather(1, p_prev.clamp_min(0)[:, None])[:, 0]
+            prev = torch.where(p_prev >= 0, prev, -1)
+            before = pos_idx < p_prev[:, None]
+            # The last valid position is excluded: a match there is the current
+            # context itself, whose continuation is not generated yet.
+            match = ((hist == tok[:, None]) & (_shift(hist, 1, -1) == prev[:, None])
+                     & kmask & _shift(kmask, 1, False) & before)
+            p_prev2 = torch.where(kmask & before, pos_idx, -1).amax(dim=1)
+            prev2 = hist.gather(1, p_prev2.clamp_min(0)[:, None])[:, 0]
+            prev2 = torch.where(p_prev2 >= 0, prev2, -2)
+            match3 = match & (_shift(hist, 2, -1) == prev2[:, None]) & _shift(kmask, 2, False)
+            p2 = torch.where(match, pos_idx, -1).amax(dim=1)
+            p3 = torch.where(match3, pos_idx, -1).amax(dim=1)
+            p_best = torch.where(p3 >= 0, p3, p2)
+            didx = (p_best[:, None] + 1 + torch.arange(K, device=dev)[None, :]).clamp_max(T - 1)
+            dvalid = kmask.gather(1, didx) & (p_best >= 0)[:, None]
+            drafts = torch.where(dvalid, hist.gather(1, didx), pad).to(tok.dtype)
+            bt = torch.cat([tok[:, None], drafts], dim=1)  # [B, S]
 
-        # -- verify: one S-token forward against the read-only cache --
-        x = model.embed_rows(bt)
-        poss = pos[:, None] + idxS
-        cos, sin = model.rope(poss, x.dtype)
-        if win is not None:
-            slot_pos = torch.cumsum(kmask.long(), dim=1) - 1
-            amask = (kmask[:, None, :]
-                     & (poss[:, :, None] - slot_pos[:, None, :] < win))[:, None, None]
-        else:
-            amask = kmask[:, None, None, None, :]
-        k_rows, v_rows = [], []
-        for i, lp in enumerate(model.layers):
-            kcl, vcl = _layer(k_cache, i), _layer(v_cache, i)
+            # -- verify: one S-token forward against the read-only cache --
+            x = model.embed_rows(bt)
+            poss = pos[:, None] + idxS
+            cos, sin = model.rope(poss, x.dtype)
+            if win is not None:
+                slot_pos = torch.cumsum(kmask.long(), dim=1) - 1
+                amask = (kmask[:, None, :]
+                         & (poss[:, :, None] - slot_pos[:, None, :] < win))[:, None, None]
+            else:
+                amask = kmask[:, None, None, None, :]
+            k_rows, v_rows = [], []
+            for i, lp in enumerate(model.layers):
+                kcl, vcl = _layer(k_cache, i), _layer(v_cache, i)
 
-            def attend(q, k, v):
-                return _verify_attention(q, k, v, kcl, vcl, amask, tri, scale, mode)
+                def attend(q, k, v):
+                    return _verify_attention(q, k, v, kcl, vcl, amask, tri, scale, mode)
 
-            x, k, v = model.layer(lp, x, cos, sin, attend)
-            k_rows.append(k)
-            v_rows.append(v)
-        h = rms_norm(x, model.final_ln, cfg.rms_norm_eps)
-        nxt = torch.argmax(model.lm_logits(h), dim=-1).to(tok.dtype)  # [B, S]
+                x, k, v = model.layer(lp, x, cos, sin, attend)
+                k_rows.append(k)
+                v_rows.append(v)
+            h = rms_norm(x, model.final_ln, cfg.rms_norm_eps)
+            nxt = torch.argmax(model.lm_logits(h), dim=-1).to(tok.dtype)  # [B, S]
 
-        # -- greedy acceptance --
-        flags = torch.cumprod((bt[:, 1:] == nxt[:, :-1]).int(), dim=1)
-        acc = flags.sum(dim=1)
-        is_eos = (bt == eos_id) & (idxS <= acc[:, None])
-        any_eos = is_eos.any(dim=1) & ~frozen
-        first_eos = torch.argmax(is_eos.int(), dim=1)  # the first maximum
-        c = torch.where(any_eos, first_eos + 1, acc + 1)
-        c = torch.where(frozen, torch.zeros_like(c), c)
-        outs.append(torch.where(idxS < c[:, None], bt, torch.full_like(bt, pad)))
-        counts.append(c)
-        bonus = nxt.gather(1, (c - 1).clamp_min(0)[:, None])[:, 0]
-        tok = torch.where(frozen, tok, torch.where(any_eos, torch.full_like(tok, eos_id), bonus))
-        done = done | any_eos
+            # -- greedy acceptance --
+            flags = torch.cumprod((bt[:, 1:] == nxt[:, :-1]).int(), dim=1)
+            acc = flags.sum(dim=1)
+            is_eos = (bt == eos_id) & (idxS <= acc[:, None])
+            any_eos = is_eos.any(dim=1) & ~frozen
+            first_eos = torch.argmax(is_eos.int(), dim=1)  # the first maximum
+            c = torch.where(any_eos, first_eos + 1, acc + 1)
+            c = torch.where(frozen, torch.zeros_like(c), c)
+            outs.append(torch.where(idxS < c[:, None], bt, torch.full_like(bt, pad)))
+            counts.append(c)
+            bonus = nxt.gather(1, (c - 1).clamp_min(0)[:, None])[:, 0]
+            tok = torch.where(frozen, tok, torch.where(any_eos, torch.full_like(tok, eos_id), bonus))
+            done = done | any_eos
 
-        # -- append the block at each row's own position --
-        _cache_row_put(k_cache, torch.stack(k_rows), wp)
-        _cache_row_put(v_cache, torch.stack(v_rows), wp)
-        _row_append(hist, bt.to(hist.dtype), wp)
-        _row_append(kmask, idxS < c[:, None], wp)
-        c = c.to(wp.dtype)
-        pos, wp = pos + c, wp + c
+            # -- append the block at each row's own position --
+            _cache_row_put(k_cache, torch.stack(k_rows), wp)
+            _cache_row_put(v_cache, torch.stack(v_rows), wp)
+            _row_append(hist, bt.to(hist.dtype), wp)
+            _row_append(kmask, idxS < c[:, None], wp)
+            c = c.to(wp.dtype)
+            pos, wp = pos + c, wp + c
     return (torch.stack(outs, dim=1), torch.stack(counts, dim=1),
             (tok, (k_cache, v_cache, kmask, pos), hist, wp, done))

@@ -3,7 +3,8 @@
 The comparator plumbing is the JAX package's, on the port's engine: every
 query's sort coroutine runs under one ``WaveRunner`` (the port's copy of
 ``algos/scheduler.py``), so comparisons from all queries share device
-batches.
+batches. A call is the span ``ranker.rerank_many``; the runner's time between
+flushes, the sorts advancing to their next wave, is ``sched.sort``.
 """
 from __future__ import annotations
 
@@ -13,6 +14,27 @@ from typing import Any, Callable, List, Optional, Sequence
 from ..algos.scheduler import WaveRunner
 from ..engine.engine import ScoringEngine
 from ..types import LlmRanker, RerankStats, SearchResult
+from ..utils.metering import span
+
+
+class _SpannedRunner(WaveRunner):
+    """The copied ``WaveRunner`` with its time outside flushes (the wait for
+    the wave event and the drain: the sort coroutines advancing) in spans
+    ``sched.sort``, one before each wave and one after the last."""
+
+    def run(self, coros):
+        self._sort = span("sched.sort").__enter__()
+        try:
+            return super().run(coros)
+        finally:
+            self._sort.__exit__(None, None, None)
+
+    def _flush(self) -> None:
+        self._sort.__exit__(None, None, None)
+        try:
+            super()._flush()
+        finally:
+            self._sort = span("sched.sort").__enter__()
 
 
 class EngineRanker(LlmRanker):
@@ -62,28 +84,29 @@ class EngineRanker(LlmRanker):
     ) -> List[List[SearchResult]]:
         """``on_result(i, reranked)`` fires as soon as query i finishes, so a
         caller can stream results to disk at query granularity."""
-        self._query_stats = [RerankStats() for _ in queries]
-        runner = WaveRunner(self._compare_batch, self.max_wave_size,
-                            cache_key=self._cache_key_fn)
+        with span("ranker.rerank_many", opens="call"):
+            self._query_stats = [RerankStats() for _ in queries]
+            runner = _SpannedRunner(self._compare_batch, self.max_wave_size,
+                                    cache_key=self._cache_key_fn)
 
-        async def one(i, q, r):
-            res = await self._rerank_one(runner, i, q, r)
-            if on_result is not None:
-                on_result(i, res)
-            return res
+            async def one(i, q, r):
+                res = await self._rerank_one(runner, i, q, r)
+                if on_result is not None:
+                    on_result(i, res)
+                return res
 
-        results = runner.run(
-            [one(i, q, copy.deepcopy(list(r)))
-             for i, (q, r) in enumerate(zip(queries, rankings))]
-        )
-        total = RerankStats()
-        for s in self._query_stats:
-            total.add(s)
-        self.stats = total
-        self.wave_stats["waves"] += runner.num_waves
-        self.wave_stats["submaximal_waves"] += runner.num_submaximal_waves
-        self.wave_stats["cache_hits"] += runner.num_cache_hits
-        return results
+            results = runner.run(
+                [one(i, q, copy.deepcopy(list(r)))
+                 for i, (q, r) in enumerate(zip(queries, rankings))]
+            )
+            total = RerankStats()
+            for s in self._query_stats:
+                total.add(s)
+            self.stats = total
+            self.wave_stats["waves"] += runner.num_waves
+            self.wave_stats["submaximal_waves"] += runner.num_submaximal_waves
+            self.wave_stats["cache_hits"] += runner.num_cache_hits
+            return results
 
     def rerank(self, query: str, ranking: List[SearchResult]) -> List[SearchResult]:
         return self.rerank_many([query], [ranking])[0]

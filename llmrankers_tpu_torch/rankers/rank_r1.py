@@ -23,6 +23,7 @@ from typing import Any, List, Optional
 from ..algos import setwise_sort
 from ..engine.engine import ScoringEngine
 from ..types import SearchResult, toppassage_results
+from ..utils.metering import span
 from .base import EngineRanker
 from .setwise import _SetRequest
 
@@ -126,62 +127,65 @@ class RankR1SetwiseLlmRanker(EngineRanker):
         return self.engine.tokenizer.apply_chat_template(messages)
 
     def _compare_batch(self, requests: List[_SetRequest]) -> List[int]:
-        rows: List[List[int]] = []
-        row_qidx: List[int] = []
-        plans: List[List[Any]] = []
-        for r in requests:
-            self._query_stats[r.qidx].comparisons += max(1, self.num_permutation)
-            n = len(r.docs)
-            # Rank-R1 shuffles the docs but keeps the labels in order.
-            variants = ([list(range(n))] if self.num_permutation == 1
-                        else [self.rng.sample(list(range(n)), n)
-                              for _ in range(self.num_permutation)])
-            plan = []
-            for perm in variants:
-                ids = self._encode_prompt(self._render(r.query, r.docs, perm))
-                self._query_stats[r.qidx].prompt_tokens += len(ids)
-                plan.append((len(rows), perm))
-                rows.append(ids)
-                row_qidx.append(r.qidx)
-            plans.append(plan)
+        with span("ranker.batch", opens="wave"):
+            rows: List[List[int]] = []
+            row_qidx: List[int] = []
+            plans: List[List[Any]] = []
+            with span("ranker.prompts"):
+                for r in requests:
+                    self._query_stats[r.qidx].comparisons += max(1, self.num_permutation)
+                    n = len(r.docs)
+                    # Rank-R1 shuffles the docs but keeps the labels in order.
+                    variants = ([list(range(n))] if self.num_permutation == 1
+                                else [self.rng.sample(list(range(n)), n)
+                                      for _ in range(self.num_permutation)])
+                    plan = []
+                    for perm in variants:
+                        ids = self._encode_prompt(self._render(r.query, r.docs, perm))
+                        self._query_stats[r.qidx].prompt_tokens += len(ids)
+                        plan.append((len(rows), perm))
+                        rows.append(ids)
+                        row_qidx.append(r.qidx)
+                    plans.append(plan)
 
-        pattern = rf"{self.prompt['pattern']}"
-        row_adapters = self._row_adapters_for(row_qidx)
-        texts, ntoks = self.engine.generate(
-            rows, self.max_completion_tokens, stop_strings=("</answer>",),
-            chunk_tokens=self.chunk_tokens,
-            **({"temperature": self.temperature, "seed": self.seed}
-               if self.temperature > 0.0 else {}),
-            **({"row_adapters": row_adapters} if row_adapters is not None
-               else {"adapter": self.adapter}),
-        )
+            pattern = rf"{self.prompt['pattern']}"
+            row_adapters = self._row_adapters_for(row_qidx)
+            texts, ntoks = self.engine.generate(
+                rows, self.max_completion_tokens, stop_strings=("</answer>",),
+                chunk_tokens=self.chunk_tokens,
+                **({"temperature": self.temperature, "seed": self.seed}
+                   if self.temperature > 0.0 else {}),
+                **({"row_adapters": row_adapters} if row_adapters is not None
+                   else {"adapter": self.adapter}),
+            )
 
-        out: List[int] = []
-        for r, plan in zip(requests, plans):
-            candidates = []
-            labels = self.CHARACTERS[: len(r.docs)]
-            for row_i, perm in plan:
-                self._query_stats[r.qidx].completion_tokens += ntoks[row_i]
-                completion = texts[row_i]
-                if self.verbose:
-                    print(f"--- completion for q={r.query!r}:\n{completion}\n---")
-                m = re.search(pattern, completion.lower(), re.DOTALL)
-                result = m.group(1).strip() if m else ""
-                if result not in labels:
-                    if self.verbose:
-                        print(f"Unexpected output: {result!r}", file=sys.stderr)
-                    continue
-                candidates.append(perm[labels.index(result)])
-            if not candidates:
-                out.append(0)  # fall back to the first, as the sort's ValueError path
-                continue
-            counts: dict = {}
-            for c in candidates:
-                counts[c] = counts.get(c, 0) + 1
-            top = max(counts.values())
-            best = [c for c, v in counts.items() if v == top]
-            out.append(best[0] if len(best) == 1 else self.rng.choice(best))
-        return out
+            with span("ranker.outcomes"):
+                out: List[int] = []
+                for r, plan in zip(requests, plans):
+                    candidates = []
+                    labels = self.CHARACTERS[: len(r.docs)]
+                    for row_i, perm in plan:
+                        self._query_stats[r.qidx].completion_tokens += ntoks[row_i]
+                        completion = texts[row_i]
+                        if self.verbose:
+                            print(f"--- completion for q={r.query!r}:\n{completion}\n---")
+                        m = re.search(pattern, completion.lower(), re.DOTALL)
+                        result = m.group(1).strip() if m else ""
+                        if result not in labels:
+                            if self.verbose:
+                                print(f"Unexpected output: {result!r}", file=sys.stderr)
+                            continue
+                        candidates.append(perm[labels.index(result)])
+                    if not candidates:
+                        out.append(0)  # fall back to the first, as the sort's ValueError path
+                        continue
+                    counts: dict = {}
+                    for c in candidates:
+                        counts[c] = counts.get(c, 0) + 1
+                    top = max(counts.values())
+                    best = [c for c, v in counts.items() if v == top]
+                    out.append(best[0] if len(best) == 1 else self.rng.choice(best))
+            return out
 
 
 class RankR1ListwiseLlmRanker(EngineRanker):

@@ -22,6 +22,7 @@ import numpy as np
 from ..algos import setwise_sort
 from ..engine.engine import ScoringEngine
 from ..types import SearchResult, toppassage_results
+from ..utils.metering import span
 from . import prompts
 from .base import EngineRanker
 
@@ -110,27 +111,30 @@ class SetwiseLlmRanker(EngineRanker):
     # Batch executor
     # ------------------------------------------------------------------
     def _compare_batch(self, requests: List[_SetRequest]) -> List[int]:
-        if self.scoring == "likelihood":
-            return self._likelihood_batch(requests)
-        return self._generation_batch(requests)
+        with span("ranker.batch", opens="wave"):
+            if self.scoring == "likelihood":
+                return self._likelihood_batch(requests)
+            return self._generation_batch(requests)
 
     def _likelihood_batch(self, requests: List[_SetRequest]) -> List[int]:
         tk = self.engine.tokenizer
         rows, max_docs = [], 0
-        for r in requests:
-            self._query_stats[r.qidx].comparisons += 1
-            text = prompts.setwise_prompt(r.query, [d.text for d in r.docs])
-            if self.engine.kind == "decoder":
-                text = tk.apply_chat_template(
-                    [{"role": "user", "content": text}]) + " Passage:"
-            ids = self._encode_prompt(text)
-            self._query_stats[r.qidx].prompt_tokens += len(ids) + len(self.decoder_prefix)
-            rows.append(ids)
-            max_docs = max(max_docs, len(r.docs))
+        with span("ranker.prompts"):
+            for r in requests:
+                self._query_stats[r.qidx].comparisons += 1
+                text = prompts.setwise_prompt(r.query, [d.text for d in r.docs])
+                if self.engine.kind == "decoder":
+                    text = tk.apply_chat_template(
+                        [{"role": "user", "content": text}]) + " Passage:"
+                ids = self._encode_prompt(text)
+                self._query_stats[r.qidx].prompt_tokens += len(ids) + len(self.decoder_prefix)
+                rows.append(ids)
+                max_docs = max(max_docs, len(r.docs))
         logits = self.engine.score_labels(rows, self.label_ids[:max_docs],
                                           self.decoder_prefix)
-        return [int(np.argmax(logits[i, : len(r.docs)]))
-                for i, r in enumerate(requests)]
+        with span("ranker.outcomes"):
+            return [int(np.argmax(logits[i, : len(r.docs)]))
+                    for i, r in enumerate(requests)]
 
     def _generation_batch(self, requests: List[_SetRequest]) -> List[int]:
         """One-token greedy decode per prompt (the reference's setwise.py:
@@ -140,65 +144,67 @@ class SetwiseLlmRanker(EngineRanker):
         rows: List[List[int]] = []
         # Per request: (row index, doc permutation, label assignment) per copy.
         plans: List[List[Any]] = []
-        for r in requests:
-            self._query_stats[r.qidx].comparisons += max(1, self.num_permutation)
-            n = len(r.docs)
-            base_labels = self.CHARACTERS[:n]
-            if self.num_permutation == 1:
-                variants = [(list(range(n)), base_labels)]
-            else:
-                variants = []
-                idx = list(range(n))
-                for _ in range(self.num_permutation):
-                    perm = self.rng.sample(idx, n)
-                    labs = self.rng.sample(base_labels, n)
-                    variants.append((perm, labs))
-            plan = []
-            for perm, labs in variants:
-                text = prompts.setwise_prompt(r.query, [r.docs[j].text for j in perm], labs)
-                text = tk.apply_chat_template([{"role": "user", "content": text}]) + " Passage:"
-                ids = self._encode_prompt(text)
-                self._query_stats[r.qidx].prompt_tokens += len(ids)
-                plan.append((len(rows), perm, labs))
-                rows.append(ids)
-            plans.append(plan)
+        with span("ranker.prompts"):
+            for r in requests:
+                self._query_stats[r.qidx].comparisons += max(1, self.num_permutation)
+                n = len(r.docs)
+                base_labels = self.CHARACTERS[:n]
+                if self.num_permutation == 1:
+                    variants = [(list(range(n)), base_labels)]
+                else:
+                    variants = []
+                    idx = list(range(n))
+                    for _ in range(self.num_permutation):
+                        perm = self.rng.sample(idx, n)
+                        labs = self.rng.sample(base_labels, n)
+                        variants.append((perm, labs))
+                plan = []
+                for perm, labs in variants:
+                    text = prompts.setwise_prompt(r.query, [r.docs[j].text for j in perm], labs)
+                    text = tk.apply_chat_template([{"role": "user", "content": text}]) + " Passage:"
+                    ids = self._encode_prompt(text)
+                    self._query_stats[r.qidx].prompt_tokens += len(ids)
+                    plan.append((len(rows), perm, labs))
+                    rows.append(ids)
+                plans.append(plan)
 
         texts, ntoks = self.engine.generate(rows, 1, self.decoder_prefix,
                                             adapter=self.adapter)
-        out: List[int] = []
-        for r, plan in zip(requests, plans):
-            for row_i, _, _ in plan:
-                self._query_stats[r.qidx].completion_tokens += ntoks[row_i]
-            if len(plan) == 1:
-                row_i, perm, labs = plan[0]
-                label = texts[row_i].strip().upper()  # setwise.py:174-177
-                if label in labs:
-                    out.append(perm[labs.index(label)])
-                else:
-                    print(f"Unexpected output: {texts[row_i]!r}", file=sys.stderr)
-                    # A valid label beyond the doc count keeps its index, so
-                    # the sort's out-of-range fallback fires upstream.
-                    out.append(self.CHARACTERS.index(label) if label in self.CHARACTERS
-                               else 0)
-                continue
-            # Self-consistency vote (setwise.py:137-157): the whole stripped
-            # decode uppercased, exactly one character.
-            candidates = []
-            for row_i, perm, labs in plan:
-                s = texts[row_i].strip().upper()
-                label = s if len(s) == 1 else ""
-                if label not in labs:
-                    print(f"Unexpected output: {texts[row_i]!r}", file=sys.stderr)
+        with span("ranker.outcomes"):
+            out: List[int] = []
+            for r, plan in zip(requests, plans):
+                for row_i, _, _ in plan:
+                    self._query_stats[r.qidx].completion_tokens += ntoks[row_i]
+                if len(plan) == 1:
+                    row_i, perm, labs = plan[0]
+                    label = texts[row_i].strip().upper()  # setwise.py:174-177
+                    if label in labs:
+                        out.append(perm[labs.index(label)])
+                    else:
+                        print(f"Unexpected output: {texts[row_i]!r}", file=sys.stderr)
+                        # A valid label beyond the doc count keeps its index, so
+                        # the sort's out-of-range fallback fires upstream.
+                        out.append(self.CHARACTERS.index(label) if label in self.CHARACTERS
+                                   else 0)
                     continue
-                candidates.append(perm[labs.index(label)])
-            if not candidates:
-                print("Unexpected voting.", file=sys.stderr)
-                out.append(0)
-                continue
-            counts: dict = {}
-            for c in candidates:
-                counts[c] = counts.get(c, 0) + 1
-            top = max(counts.values())
-            best = [c for c, v in counts.items() if v == top]
-            out.append(best[0] if len(best) == 1 else self.rng.choice(best))
+                # Self-consistency vote (setwise.py:137-157): the whole stripped
+                # decode uppercased, exactly one character.
+                candidates = []
+                for row_i, perm, labs in plan:
+                    s = texts[row_i].strip().upper()
+                    label = s if len(s) == 1 else ""
+                    if label not in labs:
+                        print(f"Unexpected output: {texts[row_i]!r}", file=sys.stderr)
+                        continue
+                    candidates.append(perm[labs.index(label)])
+                if not candidates:
+                    print("Unexpected voting.", file=sys.stderr)
+                    out.append(0)
+                    continue
+                counts: dict = {}
+                for c in candidates:
+                    counts[c] = counts.get(c, 0) + 1
+                top = max(counts.values())
+                best = [c for c, v in counts.items() if v == top]
+                out.append(best[0] if len(best) == 1 else self.rng.choice(best))
         return out
