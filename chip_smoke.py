@@ -135,7 +135,11 @@ nvcc per source, side by side) and then, one line per phase:
     rankr1_decode shape (batch 8, a shared 1200-token prefix, 640-token
     suffixes, 128 new tokens greedy in chunks of 64 with a stop string) with
     bf16 weights and bf16, int8 and int4 KV, then int8 and int4 weights with
-    int4 KV: B8 launched 36 x 128 times with a quantized cache, the run's
+    int4 KV: one capture and 128 replayed steps (``graph_stats``), B8's
+    wrapper called 36 x 2 times with a quantized cache (the capture's
+    warm-up step and its captured step; a replay calls no wrapper), so B8
+    ran 36 x (1 + 128) times, the capture's seconds (span
+    ``decode.capture``), the run's
     tokens teacher-forced through the decode with every kernel site on its
     plain version (first-step logits within a relative 0.05, 0.1 with
     quantized weights, as the hidden-state gates; every token the plain
@@ -163,11 +167,14 @@ nvcc per source, side by side) and then, one line per phase:
 26. Rank-R1 setwise end to end through ``cli.run.main`` on
     ``random:qwen2.5-3b`` with ``--kv_quantize int8`` and
     ``prompt_setwise-R1.toml``, 2 queries x 20 passages, num_child 19, k 1,
-    128 completion tokens, counting B8's launches;
+    128 completion tokens, counting B8's launches: from the run's event log
+    (``run_done``) every decode step replayed or eager and B8's wrapper
+    called 36 x (eager steps + 2 a capture), with the capture's seconds;
 27. prints a JSON line of the nine kernels (with each one's bound on this
     card and the one-call PyTorch time where there is one; B6, B7 and B9
     carry a timing yardstick instead, and B9, which no path calls, is marked
-    standalone; B8 with its launches in the generate and refill phases),
+    standalone; B8 with its wrapper's calls and its replayed launches in
+    phase 26 and the generate phase, and its launches in the refill phase),
     then ``{"ok": true, "device": ...}``.
 
 Any failed check raises and the exit code is not 0. Without a CUDA GPU it
@@ -204,6 +211,7 @@ from llmrankers_tpu_torch.ops import (_build, flash, int4_matmul, int8_matmul,  
                                       kvq_attention)
 from llmrankers_tpu_torch.rankers.prompts import setwise_prompt  # noqa: E402
 from llmrankers_tpu_torch.rankers.setwise import SetwiseLlmRanker  # noqa: E402
+from llmrankers_tpu_torch.utils import metering  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
@@ -1836,24 +1844,36 @@ def phase_generate(n, cfg, model):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             engine.programs.clear()
+            engine.graph_stats.update(captures=0, replays=0, eager_steps=0)
             for fn in COUNTERS.values():
                 fn.launches = 0
+            metering.enable()
             tic = time.perf_counter()
             texts, ntoks = engine.generate(rows, max_new_tokens=new, chunk_tokens=GEN_NEW // 2,
                                            stop_strings=stop)
             torch.cuda.synchronize()
             walls[new] = time.perf_counter() - tic
+            metering.disable()
+            capture_s = sum(t1 - t0 for name, t0, t1, *_ in metering.take()
+                            if name == "decode.capture")
         launches = {k: fn.launches for k, fn in COUNTERS.items()}
         programs = dict(engine.programs)
+        graphs = dict(engine.graph_stats)
         mem = torch.cuda.max_memory_allocated() / 2**30
         ids = np.concatenate(captured)
         if len(texts) != GEN_BATCH or ids.shape != (GEN_BATCH, GEN_NEW) or sum(ntoks) == 0:
             raise AssertionError(f"{label}: generate gave {len(texts)} texts, tokens "
                                  f"{ids.shape}, counts {ntoks}")
-        want_b8 = cfg.num_hidden_layers * GEN_NEW if kvq else 0
+        if graphs != {"captures": 1, "replays": GEN_NEW, "eager_steps": 0}:
+            raise AssertionError(f"{label}: graph_stats {graphs}, want one capture and "
+                                 f"{GEN_NEW} replayed steps")
+        # The wrapper counts the capture's warm-up and captured steps; the
+        # replays run the captured step's launches again.
+        want_b8 = cfg.num_hidden_layers * 2 if kvq else 0
         if launches["kvq_decode_attention"] != want_b8:
             raise AssertionError(f"{label}: {launches['kvq_decode_attention']} B8 launches, "
-                                 f"want {want_b8} (layers x steps): {launches}")
+                                 f"want {want_b8} (layers x the capture's 2 steps): "
+                                 f"{launches}")
         if quantize == "int4" and not launches["quantized_matmul_int4"]:
             raise AssertionError(f"{label}: B7 never launched: {launches}")
         for p_ in ("dec_prefill_pre", "dec_chunk"):
@@ -1895,13 +1915,17 @@ def phase_generate(n, cfg, model):
                     f"{LOGIT_TOL} of it (max gap {gap.max().item():.4g})")
             del kern, plain
         tokens[label] = ids
-        b8_launches[label] = launches["kvq_decode_attention"]
-        step_ms = (walls[GEN_NEW] - walls[1]) / (GEN_NEW - 1) * 1e3
+        b8_replayed = cfg.num_hidden_layers * graphs["replays"] if kvq else 0
+        b8_launches[label] = {"called": launches["kvq_decode_attention"],
+                              "replayed": b8_replayed}
+        step_ms = (walls[GEN_NEW] - capture_s - walls[1]) / (GEN_NEW - 1) * 1e3
         parts.append(
-            f"{label}: wall {walls[GEN_NEW]:.3f} s for {GEN_NEW} tokens, {walls[1]:.3f} s for "
-            f"prefill and one, so {step_ms:.2f} ms per decode step = "
-            f"{GEN_BATCH * 1e3 / step_ms:.1f} tokens/s; programs {programs}; launches "
+            f"{label}: wall {walls[GEN_NEW]:.3f} s for {GEN_NEW} tokens, of it "
+            f"{capture_s:.3f} s capturing the step, {walls[1]:.3f} s for prefill and one, so "
+            f"{step_ms:.2f} ms per decode step = {GEN_BATCH * 1e3 / step_ms:.1f} tokens/s; "
+            f"programs {programs}; graph_stats {graphs}; launches called "
             + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+            + f", B8 replayed {b8_replayed}"
             + f"; max memory allocated {mem:.2f} GiB" + gate)
         del engine
         torch.cuda.empty_cache()
@@ -2292,7 +2316,7 @@ def phase_spec(n, cfg, model):
 def _write_r1_inputs(n_queries=2, n_docs=20):
     os.makedirs(SCRATCH, exist_ok=True)
     paths = {n: os.path.join(SCRATCH, "r1_" + n) for n in ("q.tsv", "c.jsonl", "run.txt",
-                                                           "out.txt")}
+                                                           "out.txt", "events.jsonl")}
     with open(paths["q.tsv"], "w") as f:
         for qi in range(n_queries):
             f.write(f"q{qi}\t{QUERY_HEADS[qi]}: which passage is about topic {qi}\n")
@@ -2319,7 +2343,7 @@ def phase_rank_r1(n):
                                       "prompt_setwise-R1.toml"),
         "--run_path", paths["run.txt"], "--query_file", paths["q.tsv"],
         "--corpus_file", paths["c.jsonl"], "--save_path", paths["out.txt"],
-        "--hits", "20", "--query_length", "32", "--passage_length", str(PASSAGE_TOKENS),
+        "--event_log", paths["events.jsonl"], "--hits", "20", "--query_length", "32", "--passage_length", str(PASSAGE_TOKENS),
         "setwise", "--num_child", "19", "--method", "heapsort", "--k", "1",
         "--max_completion_tokens", str(GEN_NEW),
     ])
@@ -2332,9 +2356,20 @@ def phase_rank_r1(n):
     comps = report.total.comparisons
     layers = DecoderConfig.qwen25_3b().num_hidden_layers
     b8 = launches["kvq_decode_attention"]
-    if comps != 2 or b8 == 0 or b8 % (layers * GEN_NEW):
-        raise AssertionError(f"Rank-R1: {comps} comparisons, {b8} B8 launches (want "
-                             f"dispatches x {layers} layers x {GEN_NEW} steps): {launches}")
+    with open(paths["events.jsonl"]) as f:
+        done = [json.loads(line) for line in f][-1]
+    graphs = done["graph_stats"]
+    capture_s = done["spans"].get("decode.capture", {}).get("seconds", 0.0)
+    steps = graphs["replays"] + graphs["eager_steps"]
+    # The wrapper counts each eager step's launches and a capture's warm-up
+    # and captured steps; the replays run the captured step's again.
+    want_b8 = layers * (graphs["eager_steps"] + 2 * graphs["captures"])
+    if comps != 2 or steps == 0 or steps % GEN_NEW or not graphs["replays"] or b8 != want_b8:
+        raise AssertionError(f"Rank-R1: {comps} comparisons, graph_stats {graphs} (want "
+                             f"dispatches x {GEN_NEW} steps, replayed), {b8} B8 launches "
+                             f"(want {layers} layers x (eager steps + 2 a capture) = "
+                             f"{want_b8}): {launches}")
+    launches["kvq_decode_attention_replayed"] = layers * graphs["replays"]
     if not launches["flash_mha"]:
         raise AssertionError(f"Rank-R1 prefill never launched B5: {launches}")
     with open(paths["out.txt"]) as f:
@@ -2349,7 +2384,8 @@ def phase_rank_r1(n):
           f"20 passages of {PASSAGE_TOKENS} tokens, num_child 19, k 1, "
           f"--max_completion_tokens {GEN_NEW}: rerank wall {report.wall_s:.3f} s, {comps} "
           f"comparisons, {report.total.prompt_tokens} prompt and "
-          f"{report.total.completion_tokens} completion tokens; launches "
+          f"{report.total.completion_tokens} completion tokens; graph_stats {graphs}, "
+          f"{capture_s:.3f} s capturing; launches "
           + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
           + f"; max memory allocated {mem:.2f} GiB")
     return launches
@@ -2441,6 +2477,7 @@ def main():
                       0, b9, standalone=True),
         _kernel_entry("kvq_decode_attention", csrc + "kvq_decode.cu",
                       ops + "kvq_attention.py:167", r1_launches["kvq_decode_attention"], b8,
+                      replayed_launches=r1_launches["kvq_decode_attention_replayed"],
                       generate_launches=gen_launches, refill_launches=refill_launches),
     ]}))
     print(json.dumps({"ok": True, "device": {

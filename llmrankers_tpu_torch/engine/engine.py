@@ -36,7 +36,19 @@ the rows whose caches fit (``_gen_row_limit``, halved and remembered on a
 device OOM); each dispatch prefills its rows, left-padded (``dec_prefill``)
 or on shared prefixes (``dec_prefill_shared``, or ``dec_prefill_pre`` on the
 prefix-KV cache), and decodes in one go (``dec_gen*``) or in chunks
-(``dec_chunk``) with a host check for stop strings between chunks. A wave
+(``dec_chunk``) with a host check for stop strings between chunks. Greedy
+dispatches prefill into static decode buffers the engine keeps for one shape
+(``generate.DecodeState``: B rows, cache length T, cache mode, dtype), and on
+the card a chunk of 16 steps or more replays one decode step captured in a
+CUDA graph over them, once a step: one capture serves every dispatch and call
+of the shape. The buffers (a whole B x T cache) are held between calls;
+``_gen_row_limit`` counts them as free, and ``_drop_decode_state`` frees them
+and the graph before anything else allocates a cache or activations that
+could need their memory: a new shape, a sampled, speculative or slot-refill
+dispatch, ``score_labels``, and every OOM backoff before it empties the
+allocator's cache. ``graph_stats`` counts captures, replayed steps and the
+steps ``decoder_decode_chunk`` ran eagerly (sampling, short chunks, the CPU,
+plain kernels). A wave
 that needs several dispatches and is chunked runs instead as one slot-refill
 session (continuous batching, ``_generate_refill``; ``LLMRANKERS_NO_REFILL=1``
 turns it off, as in JAX): finished rows' slots are prefilled again from
@@ -231,6 +243,11 @@ class ScoringEngine:
         # Token slots every dispatch padded (``_pad_batch``: batch bucket x
         # length bucket) and the real tokens in them.
         self.pad_stats = {"real_tokens": 0, "slot_tokens": 0}
+        # Greedy decode's static buffers of one shape and its captured step
+        # (``generate.DecodeState``); decode steps replayed from the graph and
+        # run eagerly.
+        self._dstate: Optional[gen_mod.DecodeState] = None
+        self.graph_stats = {"captures": 0, "replays": 0, "eager_steps": 0}
         # Dispatches by the JAX engine's program name.
         self.programs: "collections.Counter[str]" = collections.Counter()
         self.spec_lookup = int(spec_lookup)
@@ -361,11 +378,44 @@ class ScoringEngine:
             free_b, _ = torch.cuda.mem_get_info(self.device)
             free_b += (torch.cuda.memory_reserved(self.device)
                        - torch.cuda.memory_allocated(self.device))
+            # The kept decode buffers: reused at their shape, freed at another.
+            free_b += self._dstate.nbytes() if self._dstate is not None else 0
             free = max(free_b - 2 * 1024**3, 1024**3) * 0.7
         else:
             limit = 16 * 1024**3
             free = max(limit - self._params_bytes() - 2 * 1024**3, 1024**3) * 0.7
         return max(1, int(free // per_row))
+
+    def _decode_state(self, B: int, T: int) -> "gen_mod.DecodeState":
+        """The kept decode buffers for B rows over a cache of T positions: the
+        ones held if their shape (B, T, cache mode, dtype) is this one, else
+        the held ones (and their graph) are freed before new ones are
+        allocated, so the peak stays one cache and one prefill."""
+        mode, dtype = self.cfg.kv_quant, gen_mod._act_dtype(self.model)
+        if self._dstate is None or self._dstate.key != (B, T, mode, dtype):
+            self._drop_decode_state()
+            self._dstate = gen_mod.DecodeState.alloc(self.model, B, T, dtype, mode)
+        return self._dstate
+
+    def _drop_decode_state(self) -> None:
+        """Free the kept decode buffers and their graph (the only holder of
+        both)."""
+        self._dstate = None
+
+    def _decode_chunk(self, tok, cache, prompt_len: int, offset: int, steps: int,
+                      done=None, temperature: float = 0.0, key: Optional[int] = None,
+                      state: Optional["gen_mod.DecodeState"] = None):
+        """``generate.decoder_decode_chunk``, replaying the captured step of
+        the kept ``state`` where :func:`generate.graph_wanted` the chunk,
+        counted in ``graph_stats``."""
+        replay = (state is not None and state.graph is not None
+                  and gen_mod.graph_wanted(self.model, steps, temperature, key))
+        res = gen_mod.decoder_decode_chunk(self.model, tok, cache, prompt_len, offset, steps,
+                                           int(self.cfg.eos_token_id), done=done,
+                                           temperature=temperature, key=key, state=state,
+                                           replay=replay)
+        self.graph_stats["replays" if replay else "eager_steps"] += steps
+        return res
 
     def _to_device(self, *arrays: np.ndarray) -> Tuple[torch.Tensor, ...]:
         with span("engine.prepare"):
@@ -557,6 +607,7 @@ class ScoringEngine:
         token (``decoder_prefix`` is not used there)."""
         if adapter is not None or row_adapters is not None:
             raise NotImplementedError("LoRA adapters are not ported yet (ROADMAP A10)")
+        self._drop_decode_state()  # label rows take the memory of the kept cache
         with span("engine.call"):
             out = np.zeros((len(prompt_rows), len(label_ids)), np.float32)
             labels = torch.tensor([int(x) for x in label_ids], device=self.device)
@@ -697,6 +748,7 @@ class ScoringEngine:
                             logger.warning(
                                 "device OOM in refill session (L=%d max_new=%d); backing off "
                                 "to %d rows/dispatch", L_key, max_new_tokens, row_limit)
+                            self._drop_decode_state()
                             torch.cuda.empty_cache()
                 emit(0, toks)
                 return results, ntokens
@@ -719,6 +771,7 @@ class ScoringEngine:
                             "device OOM at %d generate rows (L=%d max_new=%d); backing "
                             "off to %d rows/dispatch", len(chunk), L_key, max_new_tokens,
                             row_limit)
+                        self._drop_decode_state()
                         torch.cuda.empty_cache()
                         queue = [(off + i, sub) for i, sub in self._chunks(chunk, row_limit)
                                  ] + queue
@@ -730,15 +783,21 @@ class ScoringEngine:
                            stop_strings: Sequence[str], chunk_tokens: Optional[int],
                            row_limit: Optional[int], sampling=None) -> np.ndarray:
         """One generate dispatch over ``chunk`` rows: the emitted token matrix
-        [n, max_new_tokens]. Everything that can exhaust device memory
-        (prefill, decode, fetch) happens here, so generate's backoff can
-        retry the chunk smaller. ``sampling`` is (temperature, seed)."""
+        [n, max_new_tokens]. Everything that can exhaust device memory (the
+        kept decode buffers and their capture, prefill, decode, fetch)
+        happens here, so generate's backoff can retry the chunk smaller.
+        ``sampling`` is (temperature, seed)."""
         chunked = bool(chunk_tokens) and chunk_tokens < max_new_tokens or sampling is not None
         kvq = self.cfg.kv_quant
         spec = self.spec_lookup > 0
         # Speculation pads the cache so that a verify block crossing the
         # budget, and frozen rows' block writes after it, stay in bounds.
         mn_pad = max_new_tokens + 2 * (self.spec_lookup + 1) if spec else max_new_tokens
+        # Greedy decodes run on the kept decode buffers; other routes allocate
+        # their own cache, so the kept one is freed first.
+        kept = sampling is None and not spec
+        if not kept:
+            self._drop_decode_state()
         grp = self._group(chunk, b_cap=row_limit)
         if grp is not None:
             n, (pids, pmask, gidx, sids, smask), host = grp
@@ -747,6 +806,21 @@ class ScoringEngine:
             # Cross-wave prefix cache: cache-assembled prefix K/V instead of
             # the prefix forward (the *_pre programs).
             pre = self._pkv_assemble(host[0], pids.shape[1])
+        else:
+            ids, mask, n, B = self._pad_batch(chunk, left=True, b_cap=row_limit)
+            prompt_len = ids.shape[1]
+            ids, mask = self._to_device(ids, mask)
+        eos = int(self.cfg.eos_token_id)
+        st = bufs = None
+        if kept:
+            st = self._decode_state(B, prompt_len + mn_pad)
+            bufs = (st.kc, st.vc)
+            steps = min(chunk_tokens, max_new_tokens) if chunked else max_new_tokens
+            # Captured before the prefill fills the buffers.
+            if st.graph is None and gen_mod.graph_wanted(self.model, steps):
+                st.capture(self.model, eos)
+                self.graph_stats["captures"] += 1
+        if grp is not None:
             with span("engine.launch"):
                 if pre is not None:
                     ks, vs = pre
@@ -756,19 +830,15 @@ class ScoringEngine:
                     suffix = "_shared"
                 last_h, cache = gen_mod.decoder_shared_prefill(
                     self.model, ks.index_select(1, gidx), vs.index_select(1, gidx),
-                    pmask.index_select(0, gidx), sids, smask, mn_pad, kv_quant=kvq)
+                    pmask.index_select(0, gidx), sids, smask, mn_pad, kv_quant=kvq, bufs=bufs)
                 logits = self.model.lm_logits(last_h)
             hist_args = ("shared", (pids, pmask, gidx, sids, smask))
         else:
-            ids, mask, n, B = self._pad_batch(chunk, left=True, b_cap=row_limit)
-            prompt_len = ids.shape[1]
-            ids, mask = self._to_device(ids, mask)
             with span("engine.launch"):
                 logits, cache = gen_mod.decoder_prefill(self.model, ids, mask, mn_pad,
-                                                        kv_quant=kvq)
+                                                        kv_quant=kvq, bufs=bufs)
             suffix = ""
             hist_args = ("plain", (ids, mask))
-        eos = int(self.cfg.eos_token_id)
         if spec:
             self.programs["dec_prefill" + suffix] += 1
             hist = self._spec_history(*hist_args, prompt_len + mn_pad)
@@ -785,25 +855,27 @@ class ScoringEngine:
             tok = gen_mod._pick(logits, temperature, k_pref)
             return self._decode_chunked(tok, cache, B, prompt_len, n, max_new_tokens,
                                         chunk_tokens or max_new_tokens, stop_strings,
-                                        temperature, k_dec)
+                                        temperature, k_dec, state=st)
         self.programs["dec_gen" + suffix] += 1
         first = torch.argmax(logits, dim=-1)
-        out = gen_mod.decoder_greedy_decode(self.model, first, cache, prompt_len,
-                                            max_new_tokens, eos)
+        out, _ = self._decode_chunk(first, cache, prompt_len, 0, max_new_tokens, state=st)
         with span("engine.readback"):
-            return out[:n].cpu().numpy()
+            # A copy: on the CPU ``.cpu()`` would share the kept buffers,
+            # which the next dispatch of the shape overwrites.
+            return out[:n].cpu().numpy().copy()
 
     def _decode_chunked(self, tok, cache, B: int, prompt_len: int, n: int,
                         max_new_tokens: int, chunk_tokens: int,
                         stop_strings: Sequence[str], temperature: float = 0.0,
-                        key: Optional[int] = None) -> np.ndarray:
+                        key: Optional[int] = None,
+                        state: Optional["gen_mod.DecodeState"] = None) -> np.ndarray:
         """Decode from a prefilled cache in chunks of ``chunk_tokens``;
         between chunks the host decodes each live row and freezes those
         whose text holds a stop string (or EOS). Without stop strings, and
         with the tokenizer's EOS the model's, every freeze happens on the
         device, so chunk i+1 is enqueued before chunk i is read back; the
         tokens are the same either way. ``key`` seeds sampling, per global
-        step."""
+        step; ``state`` holds the cache (the kept decode buffers)."""
         eos = int(self.cfg.eos_token_id)
         done = torch.zeros((B,), dtype=torch.bool, device=self.device)
         pieces: List[np.ndarray] = []
@@ -813,9 +885,9 @@ class ScoringEngine:
         while offset < max_new_tokens:
             steps = min(chunk_tokens, max_new_tokens - offset)
             self.programs["dec_chunk"] += 1
-            out, (tok, cache, done) = gen_mod.decoder_decode_chunk(
-                self.model, tok, cache, prompt_len, offset, steps, eos, done=done,
-                temperature=temperature, key=key)
+            out, (tok, cache, done) = self._decode_chunk(
+                tok, cache, prompt_len, offset, steps, done=done, temperature=temperature,
+                key=key, state=state)
             offset += steps
             if pipelined:
                 prev, pending = pending, (out, done)
@@ -931,6 +1003,7 @@ class ScoringEngine:
 
         Returns the emitted-token matrix [len(rows), max_new], pad after
         each row's end, as the per-chunk route."""
+        self._drop_decode_state()  # the session allocates its own cache
         N = len(rows)
         pad_tok = self.tokenizer.pad_id
         max_len = max(len(r) for r in rows)

@@ -25,6 +25,13 @@ on EOS on the device, and the engine checks stop strings between chunks.
 Each step of a decode loop (a verify round under speculation) is the span
 ``decode.step`` of ``utils.metering``.
 
+A step of :func:`decoder_decode_chunk` (:func:`_decode_step`) advances a
+:class:`DecodeState` in place, its write position a device index, so the
+same ops run eagerly or captured in a CUDA graph: the engine keeps one
+shape's buffers with the graph of one greedy step (span ``decode.capture``)
+and, on the card, replays it once a step for greedy chunks of
+:data:`GRAPH_MIN_STEPS` or more (:func:`graph_wanted`).
+
 Slot refill (continuous batching): :func:`decoder_decode_chunk_rr` decodes
 with each row appending at its own write position ``wp`` (frozen on the
 device once its budget is spent), and :func:`decoder_refill_slots` (a
@@ -106,20 +113,21 @@ def _cache_alloc(Ld: int, B: int, KV: int, T: int, Dh: int, dtype: torch.dtype,
             torch.zeros((Ld, B, KV, T, S), dtype=torch.float32, device=device))
 
 
-def _cache_put(c: Cache, x: torch.Tensor, start: int, layer: Optional[int] = None) -> None:
+def _cache_put(c: Cache, x: torch.Tensor, start: Union[int, torch.Tensor],
+               layer: Optional[int] = None) -> None:
     """Write ``x`` [.., B, KV, n, Dh] into cache positions start..start+n-1 in
     place (of one layer, or of all when ``layer`` is None), quantizing it
-    for a quantized cache."""
+    for a quantized cache. ``start`` is a host int, or for one position
+    (n = 1) a device index [1] that the host never reads, so that a decode
+    step captured in a CUDA graph writes where the step has advanced it."""
     n = x.shape[-2]
     mode = cache_mode(c)
-    if mode is None:
-        dst = c if layer is None else c[layer]
-        dst[..., start:start + n, :] = x
-        return
-    q, s = _kv_pack(x, mode)
-    for dst, src in zip(c, (q, s)):
+    for dst, src in ((c, x),) if mode is None else zip(c, _kv_pack(x, mode)):
         dst = dst if layer is None else dst[layer]
-        dst[..., start:start + n, :] = src
+        if isinstance(start, torch.Tensor):
+            dst.index_copy_(dst.ndim - 2, start, src.to(dst.dtype))
+        else:
+            dst[..., start:start + n, :] = src
 
 
 def _row_append(buf: torch.Tensor, blk: torch.Tensor, starts: torch.Tensor) -> None:
@@ -268,10 +276,18 @@ def _act_dtype(model: Decoder) -> torch.dtype:
     return (model.embed if model.embed_scale is None else model.embed_scale).dtype
 
 
-def _new_cache(model: Decoder, B: int, T: int, dtype, mode: Optional[str]):
+def _new_cache(model: Decoder, B: int, T: int, dtype, mode: Optional[str], bufs=None):
+    """The (k, v) cache halves of B rows over T positions, zeroed: newly
+    allocated, or ``bufs`` (a :class:`DecodeState`'s halves of that shape)
+    zeroed in place."""
     cfg = model.cfg
     shape = (cfg.num_hidden_layers, B, cfg.num_key_value_heads, T, cfg.head_dim_)
-    return tuple(_cache_alloc(*shape, dtype, model.final_ln.device, mode) for _ in range(2))
+    if bufs is None:
+        return tuple(_cache_alloc(*shape, dtype, model.final_ln.device, mode) for _ in range(2))
+    for half in bufs:
+        for leaf in (half,) if isinstance(half, torch.Tensor) else half:
+            leaf.zero_()
+    return bufs
 
 
 def decoder_prefill(
@@ -280,11 +296,12 @@ def decoder_prefill(
     attn_mask: torch.Tensor,  # [B, L]
     max_new_tokens: int,
     kv_quant: Optional[str] = None,  # None | 'int8' | 'int4'
+    bufs=None,  # cache halves to fill instead of allocating (``_new_cache``)
 ):
     """Full forward over left-padded prompts: (last logits [B, V], cache)
     with the cache preallocated at L + max_new_tokens."""
     B, L = input_ids.shape
-    kc, vc = _new_cache(model, B, L + max_new_tokens, _act_dtype(model), kv_quant)
+    kc, vc = _new_cache(model, B, L + max_new_tokens, _act_dtype(model), kv_quant, bufs)
     h, _, _, pos = prefill_layers(model, input_ids, attn_mask, cache=(kc, vc))
     last_logits = model.lm_logits(h[:, -1, :])
     key_mask = F.pad(attn_mask.bool(), (0, max_new_tokens))
@@ -300,6 +317,7 @@ def decoder_shared_prefill(
     suffix_mask: torch.Tensor,  # [B, Ls]
     max_new_tokens: Optional[int] = None,
     kv_quant: Optional[str] = None,  # None | 'int8' | 'int4'
+    bufs=None,  # cache halves to fill instead of allocating (``_new_cache``)
 ):
     """Prefill suffix tokens on top of shared-prefix K/V. Returns (last
     real-token hidden [B, D], cache); ``max_new_tokens=None`` is label
@@ -312,7 +330,7 @@ def decoder_shared_prefill(
     pre_len = pre_mask.sum(dim=1)  # [B]
     cache = None
     if max_new_tokens is not None:
-        cache = _new_cache(model, B, Lp + Ls + max_new_tokens, pre_k.dtype, kv_quant)
+        cache = _new_cache(model, B, Lp + Ls + max_new_tokens, pre_k.dtype, kv_quant, bufs)
         _cache_put(cache[0], pre_k, 0)
         _cache_put(cache[1], pre_v, 0)
     h, _, _, _ = prefill_layers(model, suffix_ids, suffix_mask, pre_k=pre_k,
@@ -363,6 +381,132 @@ def _decode_token_forward(model: Decoder, tok: torch.Tensor, kc: Cache, vc: Cach
     return model.lm_logits(h), torch.stack(k_rows), torch.stack(v_rows)
 
 
+# A decode chunk replays the captured step when it has at least this many
+# steps: shorter ones (a warm-up's, a short budget's tail) run eagerly, so
+# they never pay for a capture.
+GRAPH_MIN_STEPS = 16
+
+
+def _win(model: Decoder, T: int) -> Optional[int]:
+    """The sliding window a decode step applies: None unless the cache can
+    outgrow it."""
+    win = model.cfg.sliding_window
+    return win if (win is not None and T > win) else None
+
+
+def graph_wanted(model: Decoder, steps: int, temperature: float = 0.0,
+                 key: Optional[int] = None) -> bool:
+    """Whether a decode chunk of ``steps`` replays a captured step: on a CUDA
+    device, on the kernels (not ``model.plain_kernels``), greedy (sampling
+    seeds a host generator every step) and of at least
+    :data:`GRAPH_MIN_STEPS` steps."""
+    return (model.final_ln.device.type == "cuda" and not model.plain_kernels
+            and not (temperature > 0.0 and key is not None) and steps >= GRAPH_MIN_STEPS)
+
+
+class DecodeState:
+    """What a decode step reads and advances in place: the cache halves,
+    the key mask [B, T], RoPE positions [B], the next token [B], ``done``
+    [B], the write position ``wp`` [1] (a device index: the step index is
+    wp less the prompt length) and the emitted tokens ``out`` [B, T], each
+    at its write position. :func:`decoder_decode_chunk` builds one over its
+    arguments; the engine keeps one of a shape as static buffers
+    (:meth:`alloc`, filled by a prefill through ``bufs``), and with it the
+    CUDA graph of one greedy step over them (:meth:`capture`), replayed
+    once a step. The kernel wrappers count their launches where they are
+    called: a capture's warm-up step and its captured step each count one
+    step's launches, and a replay counts none."""
+
+    def __init__(self, kc: Cache, vc: Cache, kmask, pos, tok, done, wp, out):
+        self.kc, self.vc, self.kmask, self.pos = kc, vc, kmask, pos
+        self.tok, self.done, self.wp, self.out = tok, done, wp, out
+        self.key = None  # (B, T, cache mode, dtype) of a kept state
+        self.graph = None
+
+    @classmethod
+    def alloc(cls, model: Decoder, B: int, T: int, dtype, mode: Optional[str]) -> "DecodeState":
+        """Zeroed static buffers of B rows over a cache of T positions."""
+        dev = model.final_ln.device
+
+        def zeros(shape, dt):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
+        st = cls(*_new_cache(model, B, T, dtype, mode), zeros((B, T), torch.bool),
+                 zeros((B,), torch.long), zeros((B,), torch.long), zeros((B,), torch.bool),
+                 zeros((1,), torch.long), zeros((B, T), torch.long))
+        st.key = (B, T, mode, dtype)
+        return st
+
+    def nbytes(self) -> int:
+        parts = (self.kc, self.vc, self.kmask, self.pos, self.tok, self.done, self.wp, self.out)
+        return sum(x.numel() * x.element_size()
+                   for p in parts for x in ((p,) if isinstance(p, torch.Tensor) else p))
+
+    def load(self, tok, cache, done: Optional[torch.Tensor]) -> None:
+        """Copy a chunk's inputs into the buffers; those that are already
+        the state's own (the previous chunk's outputs) stay. The cache halves
+        must be the state's own: a prefill filled them."""
+        kc, vc, kmask, pos = cache
+        if kc is not self.kc or vc is not self.vc:
+            raise ValueError("decode state: the cache is not the state's own buffers")
+        for dst, src in ((self.kmask, kmask), (self.pos, pos), (self.tok, tok)):
+            if src is not dst:
+                dst.copy_(src)
+        if done is None:
+            self.done.zero_()
+        elif done is not self.done:
+            self.done.copy_(done)
+
+    def capture(self, model: Decoder, eos_id: int) -> None:
+        """Capture one greedy step over the buffers in a CUDA graph
+        (:func:`_capture_step`, after one eager warm-up step over a full key
+        mask). Both steps write the buffers, so capture before a prefill
+        fills them."""
+        win, dtype = _win(model, self.kmask.shape[1]), _act_dtype(model)
+        with span("decode.capture"):
+            self.kmask.fill_(True)
+            self.graph = _capture_step(lambda: _decode_step(model, self, eos_id, win, dtype),
+                                       self.kmask.device)
+
+
+def _capture_step(step, dev) -> "torch.cuda.CUDAGraph":
+    """``step`` run once eagerly on a side stream, where lazy set-up, cuBLAS's
+    workspace and B8's shared-memory attribute happen, then captured on that
+    stream in a CUDA graph."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        step()
+    return graph
+
+
+def _decode_step(model: Decoder, st: DecodeState, eos_id: int, win: Optional[int], dtype,
+                 temperature: float = 0.0, key: Optional[int] = None) -> None:
+    """One decode step on ``st``, in place: the token forward, the cache
+    append and the key-mask bit at ``wp``, the pick, the emitted token (pad
+    once the row is done) into ``out`` at ``wp``; then ``done``, the next
+    token, ``pos`` and ``wp`` advance. No value comes back to the host, so the
+    same ops run eagerly or captured in a CUDA graph."""
+    cos, sin = model.rope(st.pos[:, None], dtype)
+    logits, k_new, v_new = _decode_token_forward(
+        model, st.tok, st.kc, st.vc, _window_mask(st.kmask, st.pos, win), cos, sin)
+    _cache_put(st.kc, k_new[:, :, :, None, :], st.wp)
+    _cache_put(st.vc, v_new[:, :, :, None, :], st.wp)
+    st.kmask.index_fill_(1, st.wp, True)
+    nxt = _pick(logits, temperature, key)
+    pad = torch.full_like(st.tok, model.cfg.pad_token_id)
+    st.out.index_copy_(1, st.wp, torch.where(st.done, pad, st.tok)[:, None])
+    done = st.done | (st.tok == eos_id)
+    st.tok.copy_(torch.where(done, st.tok, nxt))
+    st.done.copy_(done)
+    st.pos.add_(1)
+    st.wp.add_(1)
+
+
 def decoder_decode_chunk(
     model: Decoder,
     first_token: torch.Tensor,  # [B] next token to consume
@@ -374,39 +518,47 @@ def decoder_decode_chunk(
     done: Optional[torch.Tensor] = None,  # [B] rows frozen by the host
     temperature: float = 0.0,
     key: Optional[int] = None,  # sampling seed; step t samples with _fold(key, t)
+    state: Optional[DecodeState] = None,  # the engine's static buffers, cache included
+    replay: bool = False,  # replay ``state``'s captured step once a step
 ):
     """Generate ``steps`` tokens, writing cache positions prompt_len + offset
     on. Returns (tokens [B, steps], (next token, cache, done)); the cache is
     updated in place. Step t emits the token it consumes (pad once the row
-    is done) and picks the next; a row is done after it emits EOS."""
+    is done) and picks the next; a row is done after it emits EOS.
+
+    Each step is :func:`_decode_step` on a :class:`DecodeState`: ``state``
+    (whose cache halves ``cache`` must be) or one over the arguments. With
+    ``replay`` (for a chunk that :func:`graph_wanted`, on a ``state`` whose
+    graph was captured with ``eos_id``) each step is one replay of the
+    captured step; else the steps run eagerly."""
     k_cache, v_cache, kmask, pos = cache
     B = first_token.shape[0]
     T = kmask.shape[1]
-    L = prompt_len
-    pad = model.cfg.pad_token_id
-    if done is None:
-        done = torch.zeros((B,), dtype=torch.bool, device=first_token.device)
-    # Sliding window: skipped unless the cache can outgrow it.
-    win = model.cfg.sliding_window
-    win = win if (win is not None and T > win) else None
-    dtype = _act_dtype(model)
-    tok, outs = first_token, []
-    for i in range(steps):
-        with span("decode.step"):
-            t = offset + i
-            cos, sin = model.rope(pos[:, None], dtype)
-            logits, k_new, v_new = _decode_token_forward(
-                model, tok, k_cache, v_cache, _window_mask(kmask, pos, win), cos, sin)
-            _cache_put(k_cache, k_new[:, :, :, None, :], L + t)
-            _cache_put(v_cache, v_new[:, :, :, None, :], L + t)
-            kmask[:, L + t] = True
-            nxt = _pick(logits, temperature, None if key is None else _fold(key, t))
-            outs.append(torch.where(done, torch.full_like(tok, pad), tok))
-            done = done | (tok == eos_id)
-            tok = torch.where(done, tok, nxt)
-            pos = pos + 1
-    out = torch.stack(outs, dim=1) if outs else first_token.new_zeros((B, 0))
-    return out, (tok, (k_cache, v_cache, kmask, pos), done)
+    dev = first_token.device
+    if state is None:
+        st = DecodeState(k_cache, v_cache, kmask, pos.clone(), first_token.clone(),
+                         torch.zeros((B,), dtype=torch.bool, device=dev) if done is None
+                         else done.clone(), torch.zeros((1,), dtype=torch.long, device=dev),
+                         first_token.new_zeros((B, T)))
+    else:
+        st = state
+        st.load(first_token, cache, done)
+    a = prompt_len + offset
+    st.wp.fill_(a)
+    if replay:
+        for _ in range(steps):
+            with span("decode.step"):
+                st.graph.replay()
+    else:
+        win, dtype = _win(model, T), _act_dtype(model)
+        for i in range(steps):
+            with span("decode.step"):
+                _decode_step(model, st, eos_id, win, dtype, temperature,
+                             None if key is None else _fold(key, offset + i))
+    # ``done`` is copied: a caller may read it after enqueueing the next
+    # chunk, which advances the state's own.
+    return st.out[:, a:a + steps], (st.tok, (k_cache, v_cache, st.kmask, st.pos),
+                                    st.done.clone())
 
 
 def decoder_greedy_decode(model: Decoder, first_token: torch.Tensor, cache,
@@ -454,10 +606,8 @@ def decoder_decode_chunk_rr(
     ``wp`` this is :func:`decoder_decode_chunk`. The cache is updated in
     place. Returns (tokens [B, steps], (next token, cache, wp, done))."""
     k_cache, v_cache, kmask, pos = cache
-    T = kmask.shape[1]
     pad = model.cfg.pad_token_id
-    win = model.cfg.sliding_window
-    win = win if (win is not None and T > win) else None
+    win = _win(model, kmask.shape[1])
     dtype = _act_dtype(model)
     tok, outs = first_token, []
     for i in range(steps):

@@ -21,8 +21,17 @@ and ``engine/generate.py`` against the JAX package.
   per global step (chunking does not change it) and per dispatch chunk.
 - ``kv_quantize`` is validated as in JAX; with ``spec_lookup`` sampling
   raises, as in JAX.
+- The decode step on device write positions (``generate.DecodeState``)
+  against the host-position loop, on kept buffers and replayed through a
+  stand-in capture (the ``replayed`` fixture); the JAX parity cases on
+  replayed steps; which decodes capture, replay or run eagerly
+  (``graph_stats``), and that an OOM backoff and ``score_labels`` free the
+  kept buffers.
 """
 import dataclasses
+import gc
+import types
+import weakref
 
 import numpy as np
 import pytest
@@ -335,3 +344,209 @@ def test_kv_quantize_validation(trees):
     assert eng.cfg.kv_quant == "int8" and model.cfg.kv_quant is None
     with pytest.raises(NotImplementedError, match="A10"):
         eng.generate([[5, 6]], 2, adapter="lora")
+
+
+# ---------------------------------------------------------------------------
+# The decode step on device write positions, kept buffers and replays
+# ---------------------------------------------------------------------------
+def _parent_chunk(model, tok, cache, L, offset, steps, eos_id, done=None):
+    """The decode loop with host write positions (the cache written at
+    ``L + t`` by a host slice, the key-mask bit by a host index, ``pos``
+    advanced out of place): what the step on device positions must equal."""
+    kc, vc, kmask, pos = cache
+    if done is None:
+        done = torch.zeros(tok.shape, dtype=torch.bool)
+    dtype = tgen._act_dtype(model)
+    win = tgen._win(model, kmask.shape[1])
+    pad = model.cfg.pad_token_id
+    outs = []
+    for i in range(steps):
+        t = offset + i
+        cos, sin = model.rope(pos[:, None], dtype)
+        logits, kn, vn = tgen._decode_token_forward(
+            model, tok, kc, vc, tgen._window_mask(kmask, pos, win), cos, sin)
+        tgen._cache_put(kc, kn[:, :, :, None, :], L + t)
+        tgen._cache_put(vc, vn[:, :, :, None, :], L + t)
+        kmask[:, L + t] = True
+        nxt = torch.argmax(logits, dim=-1)
+        outs.append(torch.where(done, torch.full_like(tok, pad), tok))
+        done = done | (tok == eos_id)
+        tok = torch.where(done, tok, nxt)
+        pos = pos + 1
+    return torch.stack(outs, dim=1), (tok, (kc, vc, kmask, pos), done)
+
+
+class _FakeGraph:
+    """A captured step on the CPU: replay runs the step eagerly."""
+
+    def __init__(self, step):
+        self.replay = step
+
+
+def _fake_capture(step, dev):
+    step()  # the warm-up writes the buffers, as on the card
+    return _FakeGraph(step)
+
+
+@pytest.fixture
+def replayed(monkeypatch):
+    """Graphs on the CPU: ``graph_wanted`` judged as on the card, and each
+    capture a stand-in whose replay runs the captured step eagerly, so the
+    engine's route to its kept buffers and replays runs here."""
+    wanted = tgen.graph_wanted
+
+    def on_card(model, steps, temperature=0.0, key=None):
+        card = types.SimpleNamespace(plain_kernels=model.plain_kernels,
+                                     final_ln=types.SimpleNamespace(device=torch.device("cuda")))
+        return wanted(card, steps, temperature, key)
+
+    monkeypatch.setattr(tgen, "graph_wanted", on_card)
+    monkeypatch.setattr(tgen, "_capture_step", _fake_capture)
+
+
+def _leaves(cache):
+    return [x for half in cache[:2] for x in ((half,) if isinstance(half, torch.Tensor) else half)]
+
+
+@pytest.mark.parametrize("chunks", [1, 3])
+@pytest.mark.parametrize("kvq", [None, "int8", "int4"])
+def test_device_position_step_matches_parent_loop(trees, request, kvq, chunks):
+    """The step on device write positions gives the host-position loop's
+    tokens, cache bytes, key mask, positions and done, in one chunk or
+    three, on a cache built over the arguments (``args``), on kept buffers
+    that a prefill filled (``kept``) and replayed from a captured step over
+    them (``replayed``, captured before the prefill, whose warm-up the
+    prefill must wipe; its 3 chunks are 16 replayed steps and 2 eager)."""
+    tcfg = DecoderConfig.tiny(attention_bias=True)
+    model = tdec.params_from_jax(trees[None], tcfg, device="cpu")
+    rng = np.random.RandomState(11)
+    ids = torch.from_numpy(rng.randint(2, 258, size=(3, 12)))
+    mask = torch.ones((3, 12), dtype=torch.int64)
+    mask[1, :5] = 0
+    steps, eos = 18, 7  # an EOS the random model emits now and then
+    with torch.no_grad():
+        logits, cache = tgen.decoder_prefill(model, ids, mask, steps, kv_quant=kvq)
+        want, (wtok, wcache, wdone) = _parent_chunk(model, logits.argmax(-1), cache, 12, 0,
+                                                    steps, eos)
+    for route in ("args", "kept", "replayed"):
+        if route == "replayed":
+            request.getfixturevalue("replayed")
+        with torch.no_grad():
+            st = bufs = None
+            if route != "args":
+                st = tgen.DecodeState.alloc(model, 3, 12 + steps, tgen._act_dtype(model), kvq)
+                bufs = (st.kc, st.vc)
+                if route == "replayed":
+                    st.capture(model, eos)
+            logits, cache = tgen.decoder_prefill(model, ids, mask, steps, kv_quant=kvq,
+                                                 bufs=bufs)
+            tok, done, pieces = logits.argmax(-1), None, []
+            sizes = [steps] if chunks == 1 else [16, 1, 1] if route == "replayed" else [6] * 3
+            off = replays = 0
+            for n in sizes:
+                replay = route == "replayed" and tgen.graph_wanted(model, n)
+                out, (tok, cache, done) = tgen.decoder_decode_chunk(
+                    model, tok, cache, 12, off, n, eos, done=done, state=st, replay=replay)
+                pieces.append(out.clone())
+                off += n
+                replays += n if replay else 0
+        assert torch.equal(torch.cat(pieces, dim=1), want), route
+        assert torch.equal(tok, wtok) and torch.equal(done, wdone), route
+        assert torch.equal(cache[2], wcache[2]) and torch.equal(cache[3], wcache[3]), route
+        for got, ref in zip(_leaves(cache), _leaves(wcache)):
+            assert torch.equal(got, ref), route
+        assert replays == (0 if route != "replayed" else 16 if chunks == 3 else steps), route
+
+
+@pytest.mark.parametrize("case", ["plain-one", "shared-chunks", "cached-window", "dispatches"])
+def test_replayed_generate_matches_jax(trees, monkeypatch, replayed, case):
+    """The JAX parity cases on replayed steps, in one go and in chunks (the
+    last shorter than a replay takes, so eager on the same buffers): the
+    completions, counts and programs of the JAX engine, every step of 16 or
+    more replayed."""
+    window, kvq, path, gkw = {
+        "plain-one": (None, None, "plain", dict(max_new_tokens=20)),
+        "shared-chunks": (None, "int8", "shared", dict(max_new_tokens=40, chunk_tokens=16,
+                                                        stop_strings=STOP)),
+        "cached-window": (64, "int8", "cached", dict(max_new_tokens=36, chunk_tokens=16)),
+        "dispatches": (None, "int8", "plain", dict(max_new_tokens=20)),
+    }[case]
+    jeng, teng_ = _engines(trees, window=window, kv_quantize=kvq, **PATHS[path])
+    if case == "dispatches":
+        for eng in (jeng, teng_):
+            monkeypatch.setattr(eng, "_gen_row_limit", lambda rows, max_new: 4)
+    _same(jeng, teng_, _wave(13, prefixes=(70,)), **gkw)
+    new, chunk = gkw["max_new_tokens"], gkw.get("chunk_tokens", gkw["max_new_tokens"])
+    dispatches = sum(v for k, v in teng_.programs.items()
+                     if k.startswith(("dec_gen", "dec_prefill")))
+    stats = teng_.graph_stats
+    assert stats["captures"] == 1 and dispatches == (3 if case == "dispatches" else 1)
+    assert stats["replays"] == dispatches * (new - new % chunk)
+    assert stats["eager_steps"] == dispatches * (new % chunk)
+
+
+def test_graph_counts_and_routes(trees, monkeypatch, replayed):
+    """One capture serves the dispatches and calls of one shape; another T
+    captures again; sampled decodes and decodes under 16 steps run
+    eagerly (sampling frees the kept buffers); the programs are counted as
+    without graphs."""
+    _, eng = _engines(trees, kv_quantize="int8", prefix_share=False)
+    _, ref = _engines(trees, kv_quantize="int8", prefix_share=False)
+    ref.model.plain_kernels = True  # never replays: the route without graphs
+    for e in (eng, ref):
+        monkeypatch.setattr(e, "_gen_row_limit", lambda rows, max_new: 4)
+    rows = _wave(14, n_rows=8, prefixes=(40,), suffix=(3, 20))
+    calls = [dict(max_new_tokens=16), dict(max_new_tokens=16),
+             dict(max_new_tokens=24, chunk_tokens=16),
+             dict(max_new_tokens=12, temperature=1.5, seed=3), dict(max_new_tokens=8)]
+    want = [(True, 1, 32, 0), (True, 1, 64, 0), (True, 2, 96, 16), (False, 2, 96, 40),
+            (True, 2, 96, 56)]  # kept buffers, captures, replays, eager steps
+    for kw, (kept, captures, replays, eager) in zip(calls, want):
+        assert eng.generate(rows, **kw) == ref.generate(rows, **kw)
+        assert eng.graph_stats == {"captures": captures, "replays": replays,
+                                   "eager_steps": eager}
+        if kept:
+            assert eng._dstate.key[:2] == (4, 64 + kw["max_new_tokens"])
+        else:
+            assert eng._dstate is None
+    assert eng.programs == ref.programs
+    assert set(eng.programs) == {"dec_gen", "dec_prefill", "dec_chunk"}
+    assert ref.graph_stats["captures"] == ref.graph_stats["replays"] == 0
+
+
+def test_oom_backoff_frees_decode_state(trees, monkeypatch, replayed):
+    """A device OOM frees the kept buffers and their graph before the
+    allocator's cache is emptied; the smaller dispatches capture anew."""
+    _, eng = _engines(trees, prefix_share=False)
+    rows = _wave(6, n_rows=8)
+    want = eng.generate(rows, max_new_tokens=16)
+    assert eng.graph_stats["captures"] == 1 and eng._dstate.key[0] == 8
+    seen, orig = [], eng._generate_dispatch
+    state = {"left": 1}
+
+    def dispatch(chunk, *a, **kw):
+        if len(chunk) > 4 and state["left"]:
+            state["left"] -= 1
+            raise _fake_oom()
+        return orig(chunk, *a, **kw)
+
+    monkeypatch.setattr(eng, "_generate_dispatch", dispatch)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: seen.append(eng._dstate))
+    assert eng.generate(rows, max_new_tokens=16) == want
+    assert seen == [None]
+    assert eng.graph_stats["captures"] == 2 and eng._dstate.key[0] == 4
+
+
+def test_score_labels_frees_decode_state(trees, monkeypatch, replayed):
+    """The kept buffers do not outlive a generate into ``score_labels``: the
+    label call frees them and their graph, and the next generate of the
+    shape allocates and captures anew, with the same completions."""
+    _, eng = _engines(trees, kv_quantize="int8", prefix_share=False)
+    rows = _wave(15, n_rows=4, prefixes=(40,), suffix=(3, 20))
+    want = eng.generate(rows, max_new_tokens=16)
+    held = weakref.ref(eng._dstate)
+    eng.score_labels(rows, [5, 6, 7])
+    gc.collect()
+    assert eng._dstate is None and held() is None
+    assert eng.generate(rows, max_new_tokens=16) == want
+    assert eng.graph_stats == {"captures": 2, "replays": 32, "eager_steps": 0}

@@ -332,4 +332,5 @@ def test_cli_event_log_carries_spans_and_pad_stats(tmp_path):
     assert all(v["seconds"] >= 0 for v in spans.values())
     pad = done["pad_stats"]
     assert 0 < pad["real_tokens"] < pad["slot_tokens"]
+    assert done["graph_stats"] == {"captures": 0, "replays": 0, "eager_steps": 0}
     assert os.listdir(prof) and not metering.TRACER.on
