@@ -170,7 +170,23 @@ nvcc per source, side by side) and then, one line per phase:
     128 completion tokens, counting B8's launches: from the run's event log
     (``run_done``) every decode step replayed or eager and B8's wrapper
     called 36 x (eager steps + 2 a capture), with the capture's seconds;
-27. prints a JSON line of the nine kernels (with each one's bound on this
+27. Mellum 2 (``bench_h100/configs/mellum2-12b-a2.5b.bf16-kv8.json``) at
+    its published widths (H 32 over KV 4, Dh 128, window 1024, 64 routed
+    experts of which each token takes 8): B5 with the window on a
+    right-padded prefix rolled against its suffix (prefixes of 441 and 480
+    tokens on a 512 area, suffixes up to 2176) against plain attention
+    under the dense positional mask, with the prefix as it lies (the window
+    taken in indices) as the control that must miss the gate; B8 at KV 4
+    with the window at the cell's cache length (its prefix and suffix areas
+    and 256 new slots), one kernel a call, with the window dropped as its
+    control; then its first four layers (3 sliding : 1 full, YaRN) through
+    the engine on 8 rows sharing a 441-token prefix before suffixes of
+    1100-1300 tokens: every decode step replayed from one captured graph (0
+    eager), B5 launched on every prefill layer and no attention on the plain
+    path, B8 called 4 x 2 by the capture, and the replayed decode equal to
+    the eager one bit for bit (tokens, cache bytes, key mask) with equal
+    routing counts;
+28. prints a JSON line of the nine kernels (with each one's bound on this
     card and the one-call PyTorch time where there is one; B6, B7 and B9
     carry a timing yardstick instead, and B9, which no path calls, is marked
     standalone; B8 with its wrapper's calls and its replayed launches in
@@ -215,7 +231,7 @@ from llmrankers_tpu_torch.utils import metering  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
-N_PHASES = 27
+N_PHASES = 28
 SOURCES = ("flash_blhd", "int8_fusedq", "int4_w4a8", "kvq_decode")
 KERNEL_TOL = 0.05  # bf16 flash kernel vs plain, max |diff| on rows with a valid key
 # Label logits through 24+24 bf16 layers, kernel vs plain: each layer's
@@ -2396,6 +2412,161 @@ def _kernel_entry(name, source, replaces, launches, measured, **extra):
             "launches": launches, **measured, **extra}
 
 
+MELLUM_CONF = os.path.join(ROOT, "bench_h100", "configs", "mellum2-12b-a2.5b.bf16-kv8.json")
+MELLUM_PREFIX, MELLUM_SUFFIX, MELLUM_NEW = 441, 2150, 256  # the Rank-R1 cell's prompts
+
+
+def _mellum_b5(gen, cfg):
+    """B5's window on a rolled prefix against the dense positional mask."""
+    B, H, KV, Dh = 2, cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+    W, Lp, Ls = cfg.sliding_window, 512, 2176
+    pre_len, suf_len = torch.tensor([MELLUM_PREFIX, 480]), torch.tensor([Ls, 1900])
+    pre_mask = (torch.arange(Lp)[None] < pre_len[:, None]).int().cuda()
+    suf_mask = (torch.arange(Ls)[None] < suf_len[:, None]).int().cuda()
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    q, k, v = rnd(B, H, Ls, Dh), rnd(B, KV, Ls, Dh), rnd(B, KV, Ls, Dh)
+    pk, pv = rnd(B, KV, Lp, Dh), rnd(B, KV, Lp, Dh)
+    roll = generate._prefix_roll(pre_mask)
+    idx = roll[:, None, :, None].expand(-1, KV, -1, Dh)
+    kw = dict(causal=True, scale=Dh**-0.5, use_flash=True, window=W)
+    before = flash.flash_mha.launches
+    got = decoder.mha(q, torch.cat([pk.gather(2, idx), k], 2),
+                      torch.cat([pv.gather(2, idx), v], 2),
+                      kv_mask=torch.cat([pre_mask.gather(1, roll), suf_mask], 1).contiguous(),
+                      **kw)
+    unrolled = decoder.mha(q, torch.cat([pk, k], 2), torch.cat([pv, v], 2),
+                           kv_mask=torch.cat([pre_mask, suf_mask], 1).contiguous(), **kw)
+    launches = flash.flash_mha.launches - before
+    pos_q = pre_len.cuda()[:, None] + torch.arange(Ls, device="cuda")[None]
+    pos_k = torch.cat([torch.arange(Lp, device="cuda")[None].expand(B, -1), pos_q], 1)
+    rel = pos_q[:, :, None] - pos_k[:, None, :]
+    valid = torch.cat([pre_mask, suf_mask], 1).bool()
+    dense = ((rel >= 0) & (rel < W) & valid[:, None, :])[:, None]
+    want = decoder.mha(q.float(), torch.cat([pk, k], 2).float(), torch.cat([pv, v], 2).float(),
+                       mask=dense, scale=Dh**-0.5)
+
+    def err(x):
+        return max(float((x[b, :, :int(suf_len[b])].float() - want[b, :, :int(suf_len[b])])
+                         .abs().max()) for b in range(B))
+
+    e, ctl = err(got), err(unrolled)
+    if launches != 2 or not e <= KERNEL_TOL or not ctl > KERNEL_TOL:
+        raise AssertionError(f"Mellum B5 on a rolled prefix: {launches} launches, max |diff| "
+                             f"{e} (tol {KERNEL_TOL}), the prefix as it lies {ctl}")
+    return (f"B5 window {W} on a rolled prefix (B{B} H{H} KV{KV} prefixes {MELLUM_PREFIX}/480 "
+            f"of {Lp}, suffixes {Ls}/1900): max |diff| {e:.4g} against the dense positional "
+            f"mask; the prefix as it lies {ctl:.4g}; {launches} launches for 2 calls")
+
+
+def _mellum_b8(gen, cfg):
+    """B8 at KV 4 with the window at the cell's cache length."""
+    ladder = engine_mod.DEFAULT_LEN_BUCKETS
+    T = (engine_mod._bucket(MELLUM_PREFIX, ladder) + engine_mod._bucket(MELLUM_SUFFIX, ladder)
+         + MELLUM_NEW)
+    KV, G, Dh, W = (cfg.num_key_value_heads, cfg.num_attention_heads // cfg.num_key_value_heads,
+                    cfg.head_dim_, cfg.sliding_window)
+    state = gen.get_state()
+    # The control: the same draw with the window left out of the mask.
+    full = ab.kvq_inputs(gen, GEN_BATCH, KV, G, Dh, T, "int8", "shared", None, MELLUM_PREFIX,
+                         MELLUM_SUFFIX, MELLUM_NEW)[5]
+    gen.set_state(state)
+    args = ab.kvq_inputs(gen, GEN_BATCH, KV, G, Dh, T, "int8", "shared", W, MELLUM_PREFIX,
+                         MELLUM_SUFFIX, MELLUM_NEW) + (Dh**-0.5, "int8")
+    got = kvq_attention.kvq_decode_attention(*args)
+    err = float((got - kvq_attention.kvq_decode_attention_plain(*args)).abs().max())
+    ctl = float((got - kvq_attention.kvq_decode_attention_plain(
+        *args[:5], full, *args[6:])).abs().max())
+    n = _kernels_in_one_call(lambda: kvq_attention.kvq_decode_attention(*args))
+    if n != 1 or not err <= KERNEL_TOL or not ctl > KERNEL_TOL:
+        raise AssertionError(f"Mellum B8: {n} kernels a call, max |diff| {err}, window "
+                             f"dropped {ctl}")
+    return (f"B8 int8 B{GEN_BATCH} KV{KV} G{G} Dh{Dh} T {T} window {W}: max |diff| {err:.4g}, "
+            f"window dropped {ctl:.4g}, {n} kernel a call")
+
+
+def phase_mellum(n, gen):
+    """Mellum 2's windowed kernels at its widths, then four of its layers
+    through the engine's graphed decode (phase list above)."""
+    tic = time.perf_counter()
+    conf = json.load(open(MELLUM_CONF))
+    parts = [_mellum_b5(gen, DecoderConfig.from_hf_config(conf))]
+    torch.cuda.empty_cache()
+    parts.append(_mellum_b8(gen, DecoderConfig.from_hf_config(conf)))
+    torch.cuda.empty_cache()
+    conf.update(num_hidden_layers=4, layer_types=conf["layer_types"][:4],
+                mlp_layer_types=conf["mlp_layer_types"][:4])
+    cfg = DecoderConfig.from_hf_config(conf)
+    model = decoder.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    eng = ScoringEngine("decoder", cfg, model, ByteTokenizer(cfg.vocab_size),
+                        kv_quantize="int8")
+    rng = np.random.RandomState(27)
+    head = rng.randint(3, 250, MELLUM_PREFIX).tolist()
+    rows = [head + rng.randint(3, 250, rng.randint(1100, 1301)).tolist() for _ in range(8)]
+    plain = []
+    inner = decoder.mha
+
+    def spy(q, k, v, mask=None, **kw):
+        if not (kw.get("use_flash") and mask is None and q.shape[2] >= 128):
+            plain.append(tuple(q.shape))
+        return inner(q, k, v, mask=mask, **kw)
+
+    decoder.mha = spy
+    b5, b8 = flash.flash_mha.launches, kvq_attention.kvq_decode_attention.launches
+    try:
+        with torch.inference_mode():
+            eng.generate(rows, max_new_tokens=32)
+        torch.cuda.synchronize()
+    finally:
+        decoder.mha = inner
+    b5, b8 = flash.flash_mha.launches - b5, kvq_attention.kvq_decode_attention.launches - b8
+    stats, moe = eng.graph_stats, eng.moe_stats
+    if (stats["eager_steps"] != 0 or stats["captures"] < 1 or plain or b5 == 0 or b5 % 4
+            or b8 != 4 * 2 * stats["captures"]):
+        raise AssertionError(f"Mellum through the engine: graph {stats}, plain attention "
+                             f"{plain}, B5 launches {b5}, B8 calls {b8}")
+    parts.append(f"4 layers through the engine, 8 rows of {MELLUM_PREFIX} shared + 1100-1300 "
+                 f"tokens, 32 new: graph {stats}, programs {dict(eng.programs)}, B5 launches "
+                 f"{b5} (4 a prefill), plain attention 0, B8 calls {b8}, moe_stats {moe}")
+    del eng
+    torch.cuda.empty_cache()
+    # The replayed decode against the eager one, on the same prefill.
+    L, steps, eos = 1300, 40, 9
+    ids = torch.randint(3, 250, (8, L), device="cuda", generator=gen)
+    mask = torch.ones_like(ids, dtype=torch.int32)
+    mask[3, :200] = 0
+    with torch.inference_mode():
+        logits, cache = generate.decoder_prefill(model, ids, mask, steps, kv_quant="int8")
+        model.moe_counts.zero_()
+        want, (wtok, wcache, _) = generate.decoder_decode_chunk(
+            model, logits.argmax(-1), cache, L, 0, steps, eos)
+        want_counts = model.moe_counts.clone()
+        st = generate.DecodeState.alloc(model, 8, L + steps, generate._act_dtype(model), "int8")
+        st.capture(model, eos)
+        logits, cache = generate.decoder_prefill(model, ids, mask, steps, kv_quant="int8",
+                                                 bufs=(st.kc, st.vc))
+        model.moe_counts.zero_()
+        got, (tok, gcache, _) = generate.decoder_decode_chunk(
+            model, logits.argmax(-1), cache, L, 0, steps, eos, state=st, replay=True)
+        torch.cuda.synchronize()
+    same = (torch.equal(got, want) and torch.equal(tok, wtok)
+            and torch.equal(gcache[2], wcache[2])
+            and all(torch.equal(a, b) for a, b in zip(gcache[0] + gcache[1],
+                                                      wcache[0] + wcache[1])))
+    if not same or not torch.equal(model.moe_counts, want_counts):
+        raise AssertionError(f"Mellum replayed decode differs from the eager one: tokens "
+                             f"{torch.equal(got, want)}, counts {model.moe_counts.tolist()} "
+                             f"against {want_counts.tolist()}")
+    parts.append(f"replayed against eager decode, 8 rows of {L} (one left-padded by 200), "
+                 f"{steps} steps over T {L + steps}: tokens, cache bytes and key mask equal, routing counts "
+                 f"{model.moe_counts.tolist()} equal")
+    del model, st
+    print(f"[{n}/{N_PHASES}] Mellum 2 at its widths (tol {KERNEL_TOL}): " + "; ".join(parts)
+          + f" ({time.perf_counter() - tic:.1f} s)")
+
+
 def main():
     name = phase_device()
     phase_build()
@@ -2454,8 +2625,10 @@ def main():
     del model
     torch.cuda.empty_cache()
     r1_launches = phase_rank_r1(26)
+    torch.cuda.empty_cache()
+    phase_mellum(27, torch.Generator(device="cuda").manual_seed(4))
     csrc, ops = "llmrankers_tpu_torch/csrc/", "llmrankers_tpu/ops/"
-    print(f"[27/{N_PHASES}] kernels and result:")
+    print(f"[28/{N_PHASES}] kernels and result:")
     print(json.dumps({"kernels": [
         _kernel_entry("flash_mha_blhd", csrc + "flash_blhd.cu", ops + "flash.py:373",
                       bf16_launches["flash_mha_blhd"], b1),

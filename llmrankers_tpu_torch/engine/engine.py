@@ -48,7 +48,9 @@ could need their memory: a new shape, a sampled, speculative or slot-refill
 dispatch, ``score_labels``, and every OOM backoff before it empties the
 allocator's cache. ``graph_stats`` counts captures, replayed steps and the
 steps ``decoder_decode_chunk`` ran eagerly (sampling, short chunks, the CPU,
-plain kernels). A wave
+plain kernels). A model with routed experts (``models/moe.py``) counts its
+routing on the device, captured steps included, and ``moe_stats`` reads the
+counts once when asked; its weights are not quantized. A wave
 that needs several dispatches and is chunked runs instead as one slot-refill
 session (continuous batching, ``_generate_refill``; ``LLMRANKERS_NO_REFILL=1``
 turns it off, as in JAX): finished rows' slots are prefilled again from
@@ -84,6 +86,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.config import DecoderConfig, T5Config
+from ..models import moe as moe_mod
 from ..models.decoder import Decoder
 from ..models.quant import (quantize_decoder_params, quantize_decoder_params_int4,
                             quantize_t5_params)
@@ -183,6 +186,9 @@ class ScoringEngine:
                 raise ValueError("awq_calib targets decoder models")
             raise NotImplementedError(
                 "AWQ calibration (awq_calib) is not ported yet (ROADMAP A9 (AWQ))")
+        if quantize is not None and kind == "decoder" and cfg.has_experts:
+            raise NotImplementedError("quantized weights for routed-expert layers are not "
+                                      "ported")
         if quantize is not None:
             # The JAX engine's errors (engine.py:155-162).
             if quantize not in ("int8", "int4"):
@@ -366,13 +372,18 @@ class ScoringEngine:
             kv_bpe = bpe
         # Prefill transients per row: the [L, d_ff] FFN intermediates (one
         # fewer where the fused gated kernel keeps the pair out of memory)
-        # and about ten [L, D] streams.
+        # and about ten [L, D] streams. Routed experts instead hold, for each
+        # of a token's experts, its gathered input and output [D] and the
+        # expert's gate|up and activation [3 F].
         ffn_live = 2 if cfg.qkernels else 3
         F_ = max(cfg.intermediate_size, cfg.hidden_size)
+        ffn = ffn_live * F_
+        if cfg.has_experts:
+            ffn = cfg.num_experts_per_tok * (2 * cfg.hidden_size + 3 * cfg.moe_intermediate_size)
         per_row = (
             cfg.num_hidden_layers * cfg.num_key_value_heads
             * cfg.head_dim_ * (L + max_new) * 2 * kv_bpe  # self K/V
-            + (ffn_live * F_ + 10 * cfg.hidden_size) * L * bpe
+            + (ffn + 10 * cfg.hidden_size) * L * bpe
         )
         if self.device.type == "cuda":
             free_b, _ = torch.cuda.mem_get_info(self.device)
@@ -858,7 +869,11 @@ class ScoringEngine:
                                         temperature, k_dec, state=st)
         self.programs["dec_gen" + suffix] += 1
         first = torch.argmax(logits, dim=-1)
-        out, _ = self._decode_chunk(first, cache, prompt_len, 0, max_new_tokens, state=st)
+        # The batch's padding rows start done: they emit pad, and routed-expert
+        # layers do not count them as live.
+        pad_rows = torch.arange(B, device=self.device) >= n
+        out, _ = self._decode_chunk(first, cache, prompt_len, 0, max_new_tokens, done=pad_rows,
+                                    state=st)
         with span("engine.readback"):
             # A copy: on the CPU ``.cpu()`` would share the kept buffers,
             # which the next dispatch of the shape overwrites.
@@ -1247,6 +1262,17 @@ class ScoringEngine:
             for i in range(n, B):
                 newly[i] = True
             return newly
+
+    @property
+    def moe_stats(self) -> Dict[str, int]:
+        """The routed-expert layers' counts over the engine's lifetime
+        (``models.moe.COUNTS``: assignments and pad positions not routed,
+        summed over layers), read from the device once per call; empty
+        without experts."""
+        counts = getattr(self.model, "moe_counts", None)
+        if counts is None:
+            return {}
+        return dict(zip(moe_mod.COUNTS, (int(c) for c in counts.cpu().tolist())))
 
     # ------------------------------------------------------------------
     # Not ported yet

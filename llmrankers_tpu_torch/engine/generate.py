@@ -52,7 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.decoder import Decoder, positions_from_mask
-from ..ops.attention import mha, rms_norm
+from ..ops.attention import rms_norm
 from ..ops.kvq_attention import (NEG_INF, _dot, cached_pv, cached_qk, kvq_decode_attention,
                                  kvq_decode_attention_plain)
 from ..utils.metering import span
@@ -217,37 +217,41 @@ def prefill_layers(
     pos = positions_from_mask(attn_mask)
     if pos_offset is not None:
         pos = pos + pos_offset[:, None]
-    cos, sin = model.rope(pos, x.dtype)
+    ropes = model.ropes(pos, x.dtype)
+    routing = model.routing(attn_mask)
     have_pre = pre_k is not None
     kv_mask_full = (torch.cat([pre_mask, attn_mask], dim=1).contiguous()
                     if have_pre else attn_mask)
-    # Sliding window. Without a prefix the block is contiguously padded, so
-    # the index-space window is exact (and the kernel takes it). With a
-    # prefix there are padding holes between the right-padded prefix and the
-    # suffix, so index deltas are not position deltas: a dense positional
-    # mask instead, on the plain path.
-    win = cfg.sliding_window
-    win = win if (win is not None and kv_mask_full.shape[1] > win) else None
-    dense_win = None
-    if win is not None and have_pre:
-        pos_k = torch.cat([positions_from_mask(pre_mask), pos], dim=1)  # [B, Lp+L]
-        rel = pos[:, :, None] - pos_k[:, None, :]  # [B, Lq, Lk]
-        vis = (rel >= 0) & (rel < win) & kv_mask_full.bool()[:, None, :]
-        dense_win = vis[:, None]  # [B, 1, Lq, Lk]
+    Lk = kv_mask_full.shape[1]
+    # Sliding windows, per layer. Without a prefix the block is contiguously
+    # padded, so the index-space window is exact (and the kernel takes it).
+    # With a prefix, a windowed layer attends to each row's prefix K/V rolled
+    # so that it ends where the suffix begins (its padding moved in front):
+    # index deltas are then position deltas, and the kernel takes the window
+    # as it does without a prefix.
+    wins = [w if (w is not None and Lk > w) else None
+            for w in map(cfg.layer_window, range(cfg.num_hidden_layers))]
+    roll = roll_mask = None
+    if have_pre and any(w is not None for w in wins):
+        roll = _prefix_roll(pre_mask)
+        roll_mask = torch.cat([pre_mask.gather(1, roll), attn_mask], dim=1).contiguous()
 
     ks, vs = [], []
     for i, lp in enumerate(model.layers):
         def attend(q, k, v):
+            mask = kv_mask_full
             if have_pre:
-                k = torch.cat([pre_k[i], k], dim=2)
-                v = torch.cat([pre_v[i], v], dim=2)
+                pk, pv = pre_k[i], pre_v[i]
+                if wins[i] is not None:
+                    idx = roll[:, None, :, None].expand(-1, pk.shape[1], -1, pk.shape[3])
+                    pk, pv, mask = pk.gather(2, idx), pv.gather(2, idx), roll_mask
+                k = torch.cat([pk, k], dim=2)
+                v = torch.cat([pv, v], dim=2)
             # causal with Lk > Lq: suffix token j sees every prefix key and
             # the suffix keys <= j (the diagonal offset is Lk - Lq = Lp).
-            if dense_win is not None:
-                return mha(q, k, v, mask=dense_win, scale=cfg.head_dim_**-0.5)
-            return model.attention(q, k, v, kv_mask=kv_mask_full, window=win)
+            return model.attention(q, k, v, kv_mask=mask, window=wins[i])
 
-        x, k, v = model.layer(lp, x, cos, sin, attend)
+        x, k, v = model.layer(lp, x, *ropes[i], attend, routing)
         if cache is None:
             ks.append(k)
             vs.append(v)
@@ -258,6 +262,15 @@ def prefill_layers(
     if cache is not None:
         return h, None, None, pos
     return h, torch.stack(ks), torch.stack(vs), pos
+
+
+def _prefix_roll(pre_mask: torch.Tensor) -> torch.Tensor:
+    """[B, Lp] the source index of each slot of a right-padded prefix rolled
+    to end at slot Lp - 1 (its padding moved in front): slot c takes (c + n)
+    mod Lp, n the row's prefix length."""
+    Lp = pre_mask.shape[1]
+    return (torch.arange(Lp, device=pre_mask.device)[None, :]
+            + pre_mask.sum(dim=1)[:, None]) % Lp
 
 
 def decoder_prefix_kv(model: Decoder, input_ids: torch.Tensor,
@@ -357,24 +370,31 @@ def _attend_cached(model: Decoder, qg, kcl: Cache, vcl: Cache, k_new, v_new, ama
 
 
 def _decode_token_forward(model: Decoder, tok: torch.Tensor, kc: Cache, vc: Cache,
-                          amask: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+                          amask, cos, sin, routing=None):
     """One-token forward against read-only caches. Each layer returns only
     its new k/v row; the current token joins attention as a rank-1
     online-softmax term, and the caller appends the rows of all layers in
-    place. Returns (logits [B, V], k_new, v_new [Ld, B, KV, Dh])."""
+    place. ``amask`` [B, T], ``cos`` and ``sin`` are each one tensor for
+    every layer or a list of one per layer (:func:`_step_inputs`);
+    ``routing`` is the step's for routed-expert layers. Returns (logits [B,
+    V], k_new, v_new [Ld, B, KV, Dh])."""
     cfg = model.cfg
     B = tok.shape[0]
     KV, Dh = cfg.num_key_value_heads, cfg.head_dim_
     G = cfg.num_attention_heads // KV
     x = model.embed_rows(tok[:, None])  # [B, 1, D]
     k_rows, v_rows = [], []
+
+    def per(t, i):
+        return t[i] if isinstance(t, list) else t
+
     for i, lp in enumerate(model.layers):
         def attend(q, k, v):  # q [B, H, 1, Dh], k/v [B, KV, 1, Dh]
             a = _attend_cached(model, q.reshape(B, KV, G, Dh), _layer(kc, i), _layer(vc, i),
-                               k[:, :, 0], v[:, :, 0], amask)
+                               k[:, :, 0], v[:, :, 0], per(amask, i))
             return a.to(q.dtype).reshape(B, KV * G, 1, Dh)
 
-        x, k, v = model.layer(lp, x, cos, sin, attend)
+        x, k, v = model.layer(lp, x, per(cos, i), per(sin, i), attend, routing)
         k_rows.append(k[:, :, 0])
         v_rows.append(v[:, :, 0])
     h = rms_norm(x[:, 0], model.final_ln, cfg.rms_norm_eps)
@@ -387,11 +407,26 @@ def _decode_token_forward(model: Decoder, tok: torch.Tensor, kc: Cache, vc: Cach
 GRAPH_MIN_STEPS = 16
 
 
-def _win(model: Decoder, T: int) -> Optional[int]:
-    """The sliding window a decode step applies: None unless the cache can
-    outgrow it."""
-    win = model.cfg.sliding_window
+def _win(model: Decoder, T: int, i: int = 0) -> Optional[int]:
+    """The sliding window layer ``i``'s decode step applies: None unless the
+    cache can outgrow it."""
+    win = model.cfg.layer_window(i)
     return win if (win is not None and T > win) else None
+
+
+def _step_inputs(model: Decoder, kmask: torch.Tensor, pos: torch.Tensor, dtype):
+    """A decode step's per-layer inputs at RoPE positions ``pos`` [B]: each
+    layer's key mask (``kmask`` less what its window leaves out, one mask per
+    window) and its attention type's RoPE table, as lists (amasks, cos,
+    sin) of one per layer."""
+    T, made, amasks = kmask.shape[1], {}, []
+    for i in range(model.cfg.num_hidden_layers):
+        win = _win(model, T, i)
+        if win not in made:
+            made[win] = _window_mask(kmask, pos, win)
+        amasks.append(made[win])
+    ropes = model.ropes(pos[:, None], dtype)
+    return amasks, [c for c, _ in ropes], [s for _, s in ropes]
 
 
 def graph_wanted(model: Decoder, steps: int, temperature: float = 0.0,
@@ -462,10 +497,10 @@ class DecodeState:
         (:func:`_capture_step`, after one eager warm-up step over a full key
         mask). Both steps write the buffers, so capture before a prefill
         fills them."""
-        win, dtype = _win(model, self.kmask.shape[1]), _act_dtype(model)
+        dtype = _act_dtype(model)
         with span("decode.capture"):
             self.kmask.fill_(True)
-            self.graph = _capture_step(lambda: _decode_step(model, self, eos_id, win, dtype),
+            self.graph = _capture_step(lambda: _decode_step(model, self, eos_id, dtype),
                                        self.kmask.device)
 
 
@@ -484,16 +519,18 @@ def _capture_step(step, dev) -> "torch.cuda.CUDAGraph":
     return graph
 
 
-def _decode_step(model: Decoder, st: DecodeState, eos_id: int, win: Optional[int], dtype,
+def _decode_step(model: Decoder, st: DecodeState, eos_id: int, dtype,
                  temperature: float = 0.0, key: Optional[int] = None) -> None:
-    """One decode step on ``st``, in place: the token forward, the cache
+    """One decode step on ``st``, in place: the token forward (each layer
+    with its own key mask and RoPE table, :func:`_step_inputs`; the rows not
+    ``done`` are the live ones that routed-expert layers count), the cache
     append and the key-mask bit at ``wp``, the pick, the emitted token (pad
     once the row is done) into ``out`` at ``wp``; then ``done``, the next
     token, ``pos`` and ``wp`` advance. No value comes back to the host, so the
     same ops run eagerly or captured in a CUDA graph."""
-    cos, sin = model.rope(st.pos[:, None], dtype)
     logits, k_new, v_new = _decode_token_forward(
-        model, st.tok, st.kc, st.vc, _window_mask(st.kmask, st.pos, win), cos, sin)
+        model, st.tok, st.kc, st.vc, *_step_inputs(model, st.kmask, st.pos, dtype),
+        model.routing(done=st.done))
     _cache_put(st.kc, k_new[:, :, :, None, :], st.wp)
     _cache_put(st.vc, v_new[:, :, :, None, :], st.wp)
     st.kmask.index_fill_(1, st.wp, True)
@@ -550,10 +587,10 @@ def decoder_decode_chunk(
             with span("decode.step"):
                 st.graph.replay()
     else:
-        win, dtype = _win(model, T), _act_dtype(model)
+        dtype = _act_dtype(model)
         for i in range(steps):
             with span("decode.step"):
-                _decode_step(model, st, eos_id, win, dtype, temperature,
+                _decode_step(model, st, eos_id, dtype, temperature,
                              None if key is None else _fold(key, offset + i))
     # ``done`` is copied: a caller may read it after enqueueing the next
     # chunk, which advances the state's own.
@@ -607,15 +644,14 @@ def decoder_decode_chunk_rr(
     place. Returns (tokens [B, steps], (next token, cache, wp, done))."""
     k_cache, v_cache, kmask, pos = cache
     pad = model.cfg.pad_token_id
-    win = _win(model, kmask.shape[1])
     dtype = _act_dtype(model)
     tok, outs = first_token, []
     for i in range(steps):
         with span("decode.step"):
             live = ~done & (wp - prompt_len < max_new_tokens)
-            cos, sin = model.rope(pos[:, None], dtype)
             logits, k_new, v_new = _decode_token_forward(
-                model, tok, k_cache, v_cache, _window_mask(kmask, pos, win), cos, sin)
+                model, tok, k_cache, v_cache, *_step_inputs(model, kmask, pos, dtype),
+                model.routing(done=~live) if model.cfg.has_experts else None)
             nxt = _pick(logits, temperature, None if key is None else _fold(key, step0 + i))
             outs.append(torch.where(live, tok, torch.full_like(tok, pad)))
             # Frozen rows overwrite their one unused slot with a value their
@@ -826,11 +862,9 @@ def decoder_spec_decode_chunk(
     # Strictly below the diagonal: each token's own K/V is the separate
     # unquantized self term of _verify_attention.
     rel = torch.arange(S, device=dev)[:, None] - torch.arange(S, device=dev)[None, :]
-    tri = rel > 0
-    win = cfg.sliding_window
-    win = win if (win is not None and T > win) else None
-    if win is not None and win < S:
-        tri = tri & (rel < win)
+    tri0 = rel > 0
+    wins = [_win(model, T, i) for i in range(cfg.num_hidden_layers)]
+    tris = {w: tri0 & (rel < w) if w is not None and w < S else tri0 for w in set(wins)}
     tok, outs, counts = first_token, [], []
     for _ in range(rounds):
         with span("decode.step"):
@@ -859,21 +893,21 @@ def decoder_spec_decode_chunk(
             # -- verify: one S-token forward against the read-only cache --
             x = model.embed_rows(bt)
             poss = pos[:, None] + idxS
-            cos, sin = model.rope(poss, x.dtype)
-            if win is not None:
-                slot_pos = torch.cumsum(kmask.long(), dim=1) - 1
-                amask = (kmask[:, None, :]
-                         & (poss[:, :, None] - slot_pos[:, None, :] < win))[:, None, None]
-            else:
-                amask = kmask[:, None, None, None, :]
+            ropes = model.ropes(poss, x.dtype)
+            slot_pos = torch.cumsum(kmask.long(), dim=1) - 1
+            amasks = {w: (kmask[:, None, :]
+                          & (poss[:, :, None] - slot_pos[:, None, :] < w))[:, None, None]
+                      if w is not None else kmask[:, None, None, None, :] for w in set(wins)}
+            routing = model.routing(n=bt.numel())
             k_rows, v_rows = [], []
             for i, lp in enumerate(model.layers):
                 kcl, vcl = _layer(k_cache, i), _layer(v_cache, i)
+                amask, tri = amasks[wins[i]], tris[wins[i]]
 
                 def attend(q, k, v):
                     return _verify_attention(q, k, v, kcl, vcl, amask, tri, scale, mode)
 
-                x, k, v = model.layer(lp, x, cos, sin, attend)
+                x, k, v = model.layer(lp, x, *ropes[i], attend, routing)
                 k_rows.append(k)
                 v_rows.append(v)
             h = rms_norm(x, model.final_ln, cfg.rms_norm_eps)

@@ -219,3 +219,81 @@ class DecoderConfig:
 def load_hf_config(path: str) -> dict:
     with open(os.path.join(path, "config.json")) as f:
         return json.load(f)
+
+
+# ---------------------------------------------------------------------------
+# Layer types, per-type RoPE and routed experts (the port's own; everything
+# above is the JAX package's module)
+#
+# The port's ``DecoderConfig`` extends the one above with what a model whose
+# layers differ needs: the attention type of each layer (``layer_types``:
+# ``"sliding_attention"`` takes ``sliding_window``, ``"full_attention"``
+# none), the MLP type of each layer (``mlp_layer_types``: ``"sparse"`` is a
+# routed-expert layer), RoPE parameters per attention type, and the experts'
+# sizes. Every new field defaults to what leaves today's models unchanged:
+# without ``layer_types`` every layer takes ``sliding_window`` as before, and
+# without ``rope_parameters`` every layer takes default RoPE at ``rope_theta``.
+# ``from_hf_config`` reads them for ``model_type`` "mellum" and reads every
+# other config exactly as the original does.
+# ---------------------------------------------------------------------------
+_JaxDecoderConfig = DecoderConfig
+
+SLIDING, FULL = "sliding_attention", "full_attention"
+
+
+@dataclass(frozen=True)
+class DecoderConfig(_JaxDecoderConfig):  # noqa: F811 (the port's extension)
+    layer_types: Optional[Tuple[str, ...]] = None
+    mlp_layer_types: Optional[Tuple[str, ...]] = None
+    # ((attention type, ((key, value), ...)), ...): hashable, as the config is
+    rope_parameters: Optional[Tuple[Tuple[str, Tuple[Tuple[str, Any], ...]], ...]] = None
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    norm_topk_prob: bool = False
+
+    def layer_window(self, i: int) -> Optional[int]:
+        """The sliding window of layer ``i`` (None: full causal attention)."""
+        if self.layer_types is not None and self.layer_types[i] != SLIDING:
+            return None
+        return self.sliding_window
+
+    def layer_type(self, i: int) -> str:
+        """Layer ``i``'s attention type; one type for a model without
+        ``layer_types``."""
+        return FULL if self.layer_types is None else self.layer_types[i]
+
+    def rope_for(self, layer_type: str) -> dict:
+        """RoPE parameters of an attention type: ``rope_type`` ("default" or
+        "yarn"), ``rope_theta`` and, for YaRN, its keys as ``config.json``
+        gives them."""
+        if self.rope_parameters is None:
+            return {"rope_type": "default", "rope_theta": self.rope_theta}
+        return dict(dict(self.rope_parameters)[layer_type])
+
+    def sparse(self, i: int) -> bool:
+        """Whether layer ``i``'s MLP is the routed-expert layer."""
+        return self.mlp_layer_types is not None and self.mlp_layer_types[i] == "sparse"
+
+    @property
+    def has_experts(self) -> bool:
+        return self.mlp_layer_types is not None and "sparse" in self.mlp_layer_types
+
+    @classmethod
+    def from_hf_config(cls, d: dict) -> "DecoderConfig":
+        base = super().from_hf_config(d)
+        if d.get("model_type") != "mellum":
+            return base
+        rope = d["rope_parameters"]
+        return dataclasses.replace(
+            base,
+            sliding_window=d["sliding_window"] if d.get("use_sliding_window", True) else None,
+            rope_theta=rope["sliding_attention"]["rope_theta"],
+            layer_types=tuple(d["layer_types"]),
+            mlp_layer_types=tuple(d["mlp_layer_types"]),
+            rope_parameters=tuple((t, tuple(sorted(p.items()))) for t, p in sorted(rope.items())),
+            num_experts=d["num_experts"],
+            num_experts_per_tok=d["num_experts_per_tok"],
+            moe_intermediate_size=d["moe_intermediate_size"],
+            norm_topk_prob=d.get("norm_topk_prob", False),
+        )

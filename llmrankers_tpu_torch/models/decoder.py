@@ -6,7 +6,11 @@ and its ``[in, out]`` weight layout (every projection is ``x @ w``): ``embed``,
 w_down}``, ``final_ln`` and, untied, ``lm_head``. One ``nn.ParameterDict``
 per layer holds what the JAX pytree stacks on a leading ``[L, ...]`` axis.
 RoPE, RMSNorm with fp32 statistics, GQA, SwiGLU; optional qkv bias (Qwen2),
-q/k head norm (Qwen3) and a sliding window (Mistral).
+q/k head norm (Qwen3) and a sliding window (Mistral). Layers may differ
+(Mellum 2): each takes its attention type's window and RoPE table
+(``cfg.layer_window``, ``cfg.rope_for``: default or YaRN), and a "sparse"
+layer's MLP is routed experts (:mod:`.moe`: ``router``, ``experts_gate_up``,
+``experts_down`` in place of the SwiGLU leaves).
 
 Left-padding aware: positions derive from the attention mask, so a
 left-padded batch scores as its unpadded rows would. Attention goes through
@@ -27,14 +31,15 @@ the kernels against them.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..ops.attention import apply_rope, mha, rms_norm, rope_cos_sin
+from ..ops.attention import apply_rope, mha, rms_norm, rope_cos_sin, rope_inv_freq
 from .config import DecoderConfig
+from .moe import COUNTS, Routing, moe_ffn
 from .quant import (SCALE4_SUFFIX, SCALE_SUFFIX, _matmul, embed_rows, kmajor_leaves, qmm,
                     swiglu_ffn)
 from ..utils.device import resolve_device
@@ -51,15 +56,20 @@ def positions_from_mask(attn_mask: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.cumsum(attn_mask.long(), dim=-1) - 1, min=0)
 
 
-def _layer_shapes(cfg: DecoderConfig) -> Dict[str, Tuple[int, ...]]:
+def _layer_shapes(cfg: DecoderConfig, i: int = 0) -> Dict[str, Tuple[int, ...]]:
+    """Layer ``i``'s leaves and their shapes."""
     D, Fd = cfg.hidden_size, cfg.intermediate_size
     H, KV, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
     shapes: Dict[str, Tuple[int, ...]] = {
         "ln1": (D,), "ln2": (D,),
         "wq": (D, H * Dh), "wk": (D, KV * Dh), "wv": (D, KV * Dh),
         "wo": (H * Dh, D),
-        "w_gate": (D, Fd), "w_up": (D, Fd), "w_down": (Fd, D),
     }
+    if cfg.sparse(i):
+        E, Fe = cfg.num_experts, cfg.moe_intermediate_size
+        shapes.update(router=(D, E), experts_gate_up=(E, D, 2 * Fe), experts_down=(E, Fe, D))
+    else:
+        shapes.update(w_gate=(D, Fd), w_up=(D, Fd), w_down=(Fd, D))
     if cfg.attention_bias:
         shapes.update(bq=(H * Dh,), bk=(KV * Dh,), bv=(KV * Dh,))
     if cfg.qk_norm:
@@ -96,13 +106,18 @@ class Decoder(nn.Module):
         D, V = cfg.hidden_size, cfg.vocab_size
         self.embed = leaf("embed", (V, D))
         self.embed_scale = leaf("embed_scale", None) if "embed_scale" in quant else None
-        shapes = _layer_shapes(cfg)
-        shapes.update({k: s for k, (s, _) in quant.items()
-                       if k.endswith((SCALE_SUFFIX, SCALE4_SUFFIX)) and k not in HEAD_LEAVES})
+        scales = {k: s for k, (s, _) in quant.items()
+                  if k.endswith((SCALE_SUFFIX, SCALE4_SUFFIX)) and k not in HEAD_LEAVES}
         self.layers = nn.ModuleList(
-            nn.ParameterDict({k: leaf(k, s) for k, s in shapes.items()})
-            for _ in range(cfg.num_hidden_layers)
+            nn.ParameterDict({k: leaf(k, s) for k, s in {**_layer_shapes(cfg, i),
+                                                         **scales}.items()})
+            for i in range(cfg.num_hidden_layers)
         )
+        # The routed-expert layers' counts (:data:`.moe.COUNTS`), on the device.
+        self.moe_counts = (torch.zeros(len(COUNTS), dtype=torch.long, device=device)
+                           if cfg.has_experts else None)
+        self._routed_layers = sum(map(cfg.sparse, range(cfg.num_hidden_layers)))
+        self._inv_freq: Dict[Any, Tuple[torch.Tensor, float]] = {}  # per type and device
         self.final_ln = _empty((D,), dtype, device)
         self.lm_head = None if cfg.tie_word_embeddings else leaf("lm_head", (D, V))
         self.lm_head_scale = (leaf("lm_head_scale", None) if "lm_head_scale" in quant
@@ -112,11 +127,53 @@ class Decoder(nn.Module):
     def rope(self, positions: torch.Tensor, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
         return rope_cos_sin(positions, self.cfg.head_dim_, self.cfg.rope_theta, dtype)
 
+    def ropes(self, positions: torch.Tensor, dtype) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Each layer's (cos, sin) at ``positions``: one table per attention
+        type; a model without per-type RoPE takes :meth:`rope` everywhere."""
+        cfg = self.cfg
+        if cfg.rope_parameters is None:
+            return [self.rope(positions, dtype)] * cfg.num_hidden_layers
+        tables = {}
+        for t in {cfg.layer_type(i) for i in range(cfg.num_hidden_layers)}:
+            key = (t, positions.device)
+            if key not in self._inv_freq:  # made once: a decode step only multiplies
+                self._inv_freq[key] = rope_inv_freq(cfg.rope_for(t), cfg.head_dim_,
+                                                    positions.device)
+            inv, scale = self._inv_freq[key]
+            freqs = positions.float()[..., None] * inv
+            emb = torch.cat([freqs, freqs], dim=-1)
+            tables[t] = ((emb.cos() * scale).to(dtype), (emb.sin() * scale).to(dtype))
+        return [tables[cfg.layer_type(i)] for i in range(cfg.num_hidden_layers)]
+
+    def routing(self, attn_mask: Optional[torch.Tensor] = None,
+                done: Optional[torch.Tensor] = None, n: Optional[int] = None
+                ) -> Optional[Routing]:
+        """What a forward's expert layers share (None without experts), its
+        counts added to ``moe_counts`` once for all routed layers: a
+        prefill's real positions from its mask (assignments and pad
+        positions); a decode forward routes every row and counts the
+        assignments of its rows not ``done`` ([B] bool: a device add with no
+        host read, so a captured step counts as it replays), or of ``n``
+        tokens."""
+        if not self.cfg.has_experts:
+            return None
+        c, per = self.moe_counts, self.cfg.num_experts_per_tok * self._routed_layers
+        if attn_mask is not None:
+            routing = Routing.prefill(attn_mask)
+            real = routing.real.numel()
+            c[0] += real * per
+            c[1] += (attn_mask.numel() - real) * self._routed_layers
+            return routing
+        c[0] += (done.numel() - done.sum()) * per if done is not None else n * per
+        return Routing()
+
     def layer(self, lp, h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-              attend: Attend) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+              attend: Attend, routing: Optional[Routing] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """One block on ``h`` [B, L, D]: returns the new ``h`` and this block's
         post-RoPE K/V [B, KV, L, Dh]. ``attend`` runs the attention, so the
-        prefix-sharing prefill can put prefix K/V before the block's own."""
+        prefix-sharing prefill can put prefix K/V before the block's own;
+        ``routing`` is the forward's for a routed-expert layer."""
         cfg = self.cfg
         B, L, _ = h.shape
         H, KV, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
@@ -137,6 +194,8 @@ class Decoder(nn.Module):
         a = attend(q, k, v).transpose(1, 2).reshape(B, L, H * Dh)
         h = h + qmm(lp, "wo", a, kern, plain)
         hn = rms_norm(h, lp["ln2"], eps)
+        if "router" in lp:
+            return h + moe_ffn(lp, hn, cfg, routing), k, v
         h = h + swiglu_ffn(lp, hn, kern, plain)
         return h, k, v
 
@@ -156,17 +215,18 @@ class Decoder(nn.Module):
         L = input_ids.shape[1]
         x = self.embed_rows(input_ids)
         pos = positions_from_mask(attn_mask)
-        cos, sin = self.rope(pos, x.dtype)
-        # Sliding window: index-space masking is exact here because the
-        # batch is contiguously left-padded; a no-op when the block fits.
-        win = cfg.sliding_window
-        win = win if (win is not None and L > win) else None
+        ropes = self.ropes(pos, x.dtype)
+        routing = self.routing(attn_mask)
+        for i, lp in enumerate(self.layers):
+            # Sliding window: index-space masking is exact here because the
+            # batch is contiguously left-padded; a no-op when the block fits.
+            win = cfg.layer_window(i)
+            win = win if (win is not None and L > win) else None
 
-        def attend(q, k, v):
-            return self.attention(q, k, v, kv_mask=attn_mask, window=win)
+            def attend(q, k, v):
+                return self.attention(q, k, v, kv_mask=attn_mask, window=win)
 
-        for lp in self.layers:
-            x, _, _ = self.layer(lp, x, cos, sin, attend)
+            x, _, _ = self.layer(lp, x, *ropes[i], attend, routing)
         return rms_norm(x, self.final_ln, cfg.rms_norm_eps), pos
 
     def lm_logits(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -247,8 +307,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: DecoderConfig, dtype=torch.float3
 def init_params(cfg: DecoderConfig, generator: torch.Generator,
                 dtype=torch.float32, device="cuda") -> Decoder:
     """Random init with the JAX ``init_params`` scales (fan-in for the
-    projections, 0.02 for the embedding, ones for norms, zeros for qkv
-    biases), drawn on ``device`` from ``generator`` (which must live there).
+    projections and the experts, 0.02 for the embedding, ones for norms,
+    zeros for qkv biases), drawn on ``device`` from ``generator`` (which must live there).
     The card unless the caller asks for another device; with no GPU the
     default raises."""
     model = Decoder(cfg, dtype=dtype, device=device)
@@ -267,5 +327,5 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
             elif key.startswith("b"):
                 p.zero_()
             else:
-                nrm(p, p.shape[0] ** -0.5)
+                nrm(p, p.shape[-2] ** -0.5)
     return model

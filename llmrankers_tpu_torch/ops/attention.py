@@ -1,4 +1,5 @@
-"""Attention, normalisation, activation and RoPE ops in plain PyTorch.
+"""Attention, normalisation, activation and RoPE ops in plain PyTorch (RoPE's
+frequencies default or YaRN, :func:`rope_inv_freq`).
 
 Counterpart of ``llmrankers_tpu/ops/attention.py``'s XLA path, with the same
 semantics: einsum scores accumulated in fp32, the additive T5 bias, masking by
@@ -9,6 +10,7 @@ the ``[B, L, H*Dh]`` flash wrappers of :mod:`.flash` itself.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -36,9 +38,9 @@ def mha(
     head h reads K/V head h // G. The flash kernel reads them as they are;
     the plain path repeats them here. ``window`` bounds causal attention to
     the previous ``window`` positions in INDEX space, exact for one
-    contiguously padded block; callers with padding holes (a prefix before
-    a suffix) pass a dense positional ``mask`` instead, which only the plain
-    path takes."""
+    contiguously padded block (the prefix-sharing prefill rolls each row's
+    prefix against its suffix to make it so); a dense ``mask`` is taken by
+    the plain path only."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if window is not None and not causal:
@@ -131,3 +133,39 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     cos = cos[:, None, :, :]
     sin = sin[:, None, :, :]
     return x * cos + rotate_half(x) * sin
+
+
+def rope_inv_freq(params: dict, head_dim: int, device=None) -> Tuple[torch.Tensor, float]:
+    """(inverse frequencies [head_dim / 2] float32, cos/sin scale) of one
+    attention type's RoPE: default at ``rope_theta``, or YaRN as transformers'
+    ``_compute_yarn_parameters`` derives it (frequencies ramped between
+    interpolation and extrapolation over the correction range of
+    ``beta_fast``/``beta_slow`` at ``original_max_position_embeddings``,
+    truncated; the scale ``attention_factor``, else 0.1 ln(factor) + 1)."""
+    base = float(params["rope_theta"])
+    pos_freqs = base ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+                         / head_dim)
+    if params.get("rope_type", "default") == "default":
+        return 1.0 / pos_freqs, 1.0
+    if params["rope_type"] != "yarn":
+        raise NotImplementedError(f"rope_type {params['rope_type']!r}")
+    factor = float(params["factor"])
+    scale = params.get("attention_factor")
+    if scale is None:
+        scale = 0.1 * math.log(factor) + 1.0 if factor > 1 else 1.0
+    orig = params["original_max_position_embeddings"]
+
+    def corr_dim(rot):
+        return head_dim * math.log(orig / (rot * 2 * math.pi)) / (2 * math.log(base))
+
+    low, high = corr_dim(params.get("beta_fast") or 32), corr_dim(params.get("beta_slow") or 1)
+    if params.get("truncate", True):
+        low, high = math.floor(low), math.ceil(high)
+    low, high = max(low, 0), min(high, head_dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(head_dim // 2, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    extra = 1 - ramp  # the share of extrapolation
+    inv = (1.0 / (factor * pos_freqs)) * (1 - extra) + (1.0 / pos_freqs) * extra
+    return inv, float(scale)

@@ -48,7 +48,8 @@ PORT_MODULES = [
     "llmrankers_tpu_torch.ops.int8_matmul", "llmrankers_tpu_torch.ops.int4_matmul",
     "llmrankers_tpu_torch.ops.kvq_attention",
     "llmrankers_tpu_torch.models.config",
-    "llmrankers_tpu_torch.models.decoder", "llmrankers_tpu_torch.models.quant",
+    "llmrankers_tpu_torch.models.decoder", "llmrankers_tpu_torch.models.moe",
+    "llmrankers_tpu_torch.models.quant",
     "llmrankers_tpu_torch.models.t5", "llmrankers_tpu_torch.engine.engine",
     "llmrankers_tpu_torch.engine.generate", "llmrankers_tpu_torch.engine.parity",
     "llmrankers_tpu_torch.engine.prefix",
@@ -67,7 +68,9 @@ COPIES = ["types.py", "algos/scheduler.py", "algos/setwise_sort.py",
 # Copies the port extends: the original, then the port's own section, which
 # begins with this line.
 EXTENDED = {"utils/metering.py": "# Host spans (the port's own; everything above is the JAX "
-                                 "package's module)\n"}
+                                 "package's module)\n",
+            "models/config.py": "# Layer types, per-type RoPE and routed experts (the port's "
+                                "own; everything\n"}
 
 
 def _port_files():
@@ -167,7 +170,13 @@ PRESETS = [("T5Config", "tiny"), ("T5Config", "flan_t5_large"),
 def test_config_presets_match_jax(cls, preset):
     got = getattr(getattr(tconfig, cls), preset)()
     want = getattr(getattr(jconfig, cls), preset)()
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    # The port's DecoderConfig adds fields (layer types, per-type RoPE,
+    # experts): the JAX fields match, and the added ones keep their defaults.
+    got_d, want_d = dataclasses.asdict(got), dataclasses.asdict(want)
+    assert {k: got_d[k] for k in want_d} == want_d
+    defaults = {f.name: f.default for f in dataclasses.fields(got)}
+    assert {k: v for k, v in got_d.items() if k not in want_d} == {
+        k: v for k, v in defaults.items() if k not in want_d}
     assert type(got) is getattr(tconfig, cls)
 
 

@@ -445,7 +445,8 @@ def test_cli_quantized_decoder_matches_jax(tmp_path, monkeypatch, quantize):
             "setwise", "--num_child", "2", "--method", "heapsort", "--k", "3"]
 
     def jax_init(cfg, gen, dtype, device):
-        jcfg = JaxDecoderConfig(**dataclasses.asdict(cfg))
+        jcfg = JaxDecoderConfig(**{f.name: getattr(cfg, f.name)
+                                   for f in dataclasses.fields(JaxDecoderConfig)})
         tree = jax.tree.map(np.asarray, jdec.init_params(jcfg, jax.random.PRNGKey(929)))
         return tdec.params_from_jax(tree, cfg, dtype=dtype, device=device)
 

@@ -213,7 +213,8 @@ def _cli_matches_jax(tmp_path, monkeypatch, *run_flags):
                 "setwise", "--num_child", "7", "--k", "2", "--max_completion_tokens", "16"]
 
     def jax_init(cfg, gen, dtype, device):
-        jcfg = JaxDecoderConfig(**dataclasses.asdict(cfg))
+        jcfg = JaxDecoderConfig(**{f.name: getattr(cfg, f.name)
+                                   for f in dataclasses.fields(JaxDecoderConfig)})
         t = jax.tree.map(np.asarray, jdec.init_params(jcfg, jax.random.PRNGKey(929)))
         return tdec.params_from_jax(t, cfg, dtype=dtype, device=device)
 

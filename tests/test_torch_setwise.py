@@ -282,7 +282,8 @@ def test_cli_decoder_orders_match_jax(tmp_path, monkeypatch, preset):
     argv = _argv(tmp_path, "--device", "cpu", "--dtype", "float32", model=f"random:{preset}")
 
     def jax_init(cfg, gen, dtype, device):
-        jcfg = JaxDecoderConfig(**dataclasses.asdict(cfg))
+        jcfg = JaxDecoderConfig(**{f.name: getattr(cfg, f.name)
+                                   for f in dataclasses.fields(JaxDecoderConfig)})
         tree = jax.tree.map(np.asarray, jdec.init_params(jcfg, jax.random.PRNGKey(929)))
         return tdec.params_from_jax(tree, cfg, dtype=dtype, device=device)
 
