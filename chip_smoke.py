@@ -186,7 +186,16 @@ nvcc per source, side by side) and then, one line per phase:
     path, B8 called 4 x 2 by the capture, and the replayed decode equal to
     the eager one bit for bit (tokens, cache bytes, key mask) with equal
     routing counts;
-28. prints a JSON line of the nine kernels (with each one's bound on this
+28. a Rank-R1 wave at the r1-gen cell's shape through the engine: Qwen2.5-3B's
+    widths at 4 layers, int8 KV, 48 rows of a shared 441-token head and
+    2111-2150-token suffixes (the prefix-KV cache route), 256 greedy tokens;
+    at the default ``max_batch_tokens`` (32 rows a prefill piece at L 4096)
+    it must run as one decode of 2 pieces (``wave_stats``), 1 capture and 256
+    replayed steps; then the same wave with the row limit forced to 32 (two
+    dispatches, the second padded to 32 rows): the per-row first-token
+    logits' largest difference between the two (within LOGIT_TOL), the share
+    of served tokens equal, and both walls;
+29. prints a JSON line of the nine kernels (with each one's bound on this
     card and the one-call PyTorch time where there is one; B6, B7 and B9
     carry a timing yardstick instead, and B9, which no path calls, is marked
     standalone; B8 with its wrapper's calls and its replayed launches in
@@ -199,6 +208,7 @@ the JAX package. Scratch files go to ``build/chip_smoke/`` in the checkout.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import os
@@ -231,7 +241,7 @@ from llmrankers_tpu_torch.utils import metering  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
-N_PHASES = 28
+N_PHASES = 29
 SOURCES = ("flash_blhd", "int8_fusedq", "int4_w4a8", "kvq_decode")
 KERNEL_TOL = 0.05  # bf16 flash kernel vs plain, max |diff| on rows with a valid key
 # Label logits through 24+24 bf16 layers, kernel vs plain: each layer's
@@ -2567,6 +2577,97 @@ def phase_mellum(n, gen):
           + f" ({time.perf_counter() - tic:.1f} s)")
 
 
+WAVE_ROWS, WAVE_PREFIX, WAVE_SUFFIX, WAVE_NEW = 48, 441, (2111, 2151), 256
+
+
+class _ServedTokenizer(ByteTokenizer):
+    """The byte tokenizer, keeping the ids of every ``decode``: the engine
+    decodes each row's served tokens once, in row order."""
+
+    def __init__(self, vocab_size):
+        super().__init__(vocab_size)
+        self.served = []
+
+    def decode(self, ids, skip_special_tokens=True):
+        self.served.append([int(i) for i in ids])
+        return super().decode(ids, skip_special_tokens)
+
+
+def _wave_run(model, cfg, rows, row_limit=None):
+    """One greedy ``generate`` of ``rows`` on a fresh engine (int8 KV, the
+    prefix-KV cache), optionally with the row limit forced: (first-token
+    logits [rows, V] f32, served tokens, wall s, engine)."""
+    eng = ScoringEngine("decoder", cfg, model, _ServedTokenizer(cfg.vocab_size),
+                        kv_quantize="int8")
+    if row_limit is not None:
+        eng._gen_row_limit = lambda rows, max_new: row_limit
+    hidden, inner = [], generate.decoder_shared_prefill
+
+    def spy(*args, **kw):
+        last_h, cache = inner(*args, **kw)
+        hidden.append(last_h[args[5].any(dim=1)])  # the rows with a suffix
+        return last_h, cache
+
+    generate.decoder_shared_prefill = spy
+    try:
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            eng.generate(rows, max_new_tokens=WAVE_NEW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - tic
+            logits = model.lm_logits(torch.cat(hidden)).float()
+    finally:
+        generate.decoder_shared_prefill = inner
+    eng._drop_decode_state()
+    return logits, eng.tokenizer.served, wall, eng
+
+
+def phase_wave(n, gen):
+    """The r1-gen wave as one decode of two prefill pieces, against two
+    dispatches (phase list above)."""
+    tic = time.perf_counter()
+    cfg = dataclasses.replace(DecoderConfig.qwen25_3b(), num_hidden_layers=4)
+    model = decoder.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    rng = np.random.RandomState(28)
+    head = rng.randint(3, 250, WAVE_PREFIX).tolist()
+    rows = [head + rng.randint(3, 250, rng.randint(*WAVE_SUFFIX)).tolist()
+            for _ in range(WAVE_ROWS)]
+    # Two dispatches first, so that both walls come after the kernels' builds.
+    want, served_ref, wall_ref, ref = _wave_run(model, cfg, rows, row_limit=32)
+    if ref.wave_stats != {"decodes": 2, "pieces": 2, "rows": WAVE_ROWS, "slots": 64}:
+        raise AssertionError(f"two dispatches: wave_stats {ref.wave_stats}")
+    del ref
+    torch.cuda.empty_cache()
+    got, served, wall, eng = _wave_run(model, cfg, rows)
+    want_waves = {"decodes": 1, "pieces": 2, "rows": WAVE_ROWS, "slots": WAVE_ROWS}
+    want_graph = {"captures": 1, "replays": WAVE_NEW, "eager_steps": 0}
+    if (eng.wave_stats != want_waves or eng.graph_stats != want_graph
+            or eng.programs["dec_gen_pre"] != 1):
+        raise AssertionError(f"wave in pieces: wave_stats {eng.wave_stats}, graph_stats "
+                             f"{eng.graph_stats}, programs {dict(eng.programs)}")
+    waves, graphs, programs = dict(eng.wave_stats), dict(eng.graph_stats), dict(eng.programs)
+    del eng
+    diff = (got - want).abs().max(dim=1).values
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()) or float(
+            diff.max()) > LOGIT_TOL:
+        raise AssertionError(f"wave in pieces: first-token logits {tuple(got.shape)} against "
+                             f"{tuple(want.shape)}, max |diff| {float(diff.max())}")
+    toks = [(a[i], b[i]) for a, b in zip(served, served_ref) for i in range(min(len(a), len(b)))]
+    same = sum(a == b for a, b in toks) / max(1, len(toks))
+    first = sum(a[:1] == b[:1] for a, b in zip(served, served_ref))
+    del model
+    torch.cuda.empty_cache()
+    print(f"[{n}/{N_PHASES}] Rank-R1 wave in pieces (Qwen2.5-3B widths, 4 layers, int8 KV, "
+          f"{WAVE_ROWS} rows of {WAVE_PREFIX} shared + {WAVE_SUFFIX[0]}-{WAVE_SUFFIX[1] - 1} "
+          f"tokens, {WAVE_NEW} new): wave_stats {waves}, graph_stats {graphs}, programs "
+          f"{programs}; against two dispatches of 32 rows: first-token logits max |diff| rows "
+          f"0-31 {float(diff[:32].max())}, rows 32-47 {float(diff[32:].max())}, first tokens "
+          f"equal {first}/{WAVE_ROWS}, served tokens equal {same:.4f} of {len(toks)}; walls "
+          f"{wall:.3f} s (one decode) and {wall_ref:.3f} s (two), a capture each "
+          f"({time.perf_counter() - tic:.1f} s)")
+
+
 def main():
     name = phase_device()
     phase_build()
@@ -2627,8 +2728,10 @@ def main():
     r1_launches = phase_rank_r1(26)
     torch.cuda.empty_cache()
     phase_mellum(27, torch.Generator(device="cuda").manual_seed(4))
+    torch.cuda.empty_cache()
+    phase_wave(28, torch.Generator(device="cuda").manual_seed(5))
     csrc, ops = "llmrankers_tpu_torch/csrc/", "llmrankers_tpu/ops/"
-    print(f"[28/{N_PHASES}] kernels and result:")
+    print(f"[29/{N_PHASES}] kernels and result:")
     print(json.dumps({"kernels": [
         _kernel_entry("flash_mha_blhd", csrc + "flash_blhd.cu", ops + "flash.py:373",
                       bf16_launches["flash_mha_blhd"], b1),

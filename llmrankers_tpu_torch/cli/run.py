@@ -30,8 +30,8 @@ comparison, ``--kv_quantize int8|int4`` quantizes the generation KV cache
 setwise ranker with that TOML prompt pack and ``--max_completion_tokens``.
 ``--profile_dir`` writes a ``torch.profiler`` Chrome trace of the rerank, the
 port's spans above its operators; with ``--event_log`` the ``run_done`` event
-carries each span name's count and seconds and the engine's ``pad_stats``
-and ``graph_stats``.
+carries each span name's count and seconds and the engine's ``pad_stats``,
+``graph_stats`` and ``wave_stats``.
 Flags of features that are not ported yet raise ``NotImplementedError``
 naming their ROADMAP item.
 """
@@ -491,7 +491,7 @@ def main(args):
             total["count"] += 1
             total["seconds"] += t1 - t0
     log.emit("run_done", **report.summary(), spans=spans, pad_stats=dict(engine.pad_stats),
-             graph_stats=dict(engine.graph_stats))
+             graph_stats=dict(engine.graph_stats), wave_stats=dict(engine.wave_stats))
     log.close()
     return report
 

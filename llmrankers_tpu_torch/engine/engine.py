@@ -4,7 +4,9 @@ The rankers call the engine through a small interface: ``kind``, ``cfg``,
 ``tokenizer``, ``score_labels``, ``generate`` and ``truncated_rows``. The host
 logic is the JAX engine's, line for line, so the port's batches match it row for row:
 token rows are padded into (batch, length) buckets from the same ladders, and
-waves whose B*L exceeds ``max_batch_tokens`` are split at batch-bucket rungs.
+waves whose B*L exceeds ``max_batch_tokens`` are split at batch-bucket rungs
+(a greedy ``generate`` wave is split by memory only, and its prefill by
+``max_batch_tokens``).
 The device half runs eagerly under ``torch.inference_mode()``; each dispatch
 is one of the JAX engine's programs, and ``programs`` counts them by the JAX
 program name.
@@ -33,10 +35,14 @@ KV cache in the model's dtype or quantized (``kv_quantize="int8"`` or
 ``"int4"``; over a quantized cache every decode step's attention runs the
 hand-written kernel on the card). A wave is split into dispatches of at most
 the rows whose caches fit (``_gen_row_limit``, halved and remembered on a
-device OOM); each dispatch prefills its rows, left-padded (``dec_prefill``)
-or on shared prefixes (``dec_prefill_shared``, or ``dec_prefill_pre`` on the
-prefix-KV cache), and decodes in one go (``dec_gen*``) or in chunks
-(``dec_chunk``) with a host check for stop strings between chunks. Greedy
+device OOM), and a sampled or speculative wave also at ``max_batch_tokens``;
+each dispatch prefills its rows, left-padded (``dec_prefill``) or on shared
+prefixes (``dec_prefill_shared``, or ``dec_prefill_pre`` on the prefix-KV
+cache), and decodes in one go (``dec_gen*``) or in chunks (``dec_chunk``)
+with a host check for stop strings between chunks. A greedy dispatch of more
+rows than ``max_batch_tokens`` lets through prefills them in pieces of that
+many rows into one decode batch, decoded once; ``wave_stats`` counts the
+dispatches, pieces, rows and decode rows. Greedy
 dispatches prefill into static decode buffers the engine keeps for one shape
 (``generate.DecodeState``: B rows, cache length T, cache mode, dtype), and on
 the card a chunk of 16 steps or more replays one decode step captured in a
@@ -254,6 +260,9 @@ class ScoringEngine:
         # run eagerly.
         self._dstate: Optional[gen_mod.DecodeState] = None
         self.graph_stats = {"captures": 0, "replays": 0, "eager_steps": 0}
+        # Generate dispatches (refill sessions aside): decodes, their prefill
+        # pieces, the real rows decoded and the decode batch's rows.
+        self.wave_stats = {"decodes": 0, "pieces": 0, "rows": 0, "slots": 0}
         # Dispatches by the JAX engine's program name.
         self.programs: "collections.Counter[str]" = collections.Counter()
         self.spec_lookup = int(spec_lookup)
@@ -318,24 +327,32 @@ class ScoringEngine:
             L = cap
         return L
 
-    def _chunks(self, rows: List[List[int]], row_limit: Optional[int] = None):
+    def _chunks(self, rows: List[List[int]], row_limit: Optional[int] = None,
+                pieces: bool = False):
         """Split a wave so B*L stays under max_batch_tokens (and under
         ``row_limit``, the generate path's per-dispatch row cap). Scoring
         chunks land on a batch-bucket rung (no systematic row padding);
         memory-capped generate chunks on a rung of the densified
-        :meth:`_row_ladder`, or keep a limit below its smallest rung."""
+        :meth:`_row_ladder`, or keep a limit below its smallest rung. With
+        ``pieces`` (greedy dispatches, whose prefill runs in pieces of the
+        token cap's rows) ``row_limit`` alone bounds a chunk."""
         if not rows:
             return
+        per = self._rows_per(rows, row_limit, pieces)
+        for i in range(0, len(rows), per):
+            yield i, rows[i: i + per]
+
+    def _rows_per(self, rows: List[List[int]], row_limit: Optional[int] = None,
+                  pieces: bool = False) -> int:
+        """Rows per chunk of :meth:`_chunks`, which is also a prefill piece's
+        most rows (``pieces`` False)."""
         L = self._cap_len(_bucket(max(len(r) for r in rows), self.len_buckets), 0)
         per = max(1, self.max_batch_tokens // L)
         if row_limit is not None:
-            per = max(1, min(per, row_limit))
+            per = max(1, row_limit if pieces else min(per, row_limit))
         ladder = self._row_ladder() if row_limit is not None else self.batch_buckets
         fitting = [b for b in ladder if b <= per]
-        if fitting:
-            per = max(fitting)
-        for i in range(0, len(rows), per):
-            yield i, rows[i: i + per]
+        return max(fitting) if fitting else per
 
     def _row_ladder(self) -> List[int]:
         """Rows-per-dispatch rungs for memory-capped generate chunks: the
@@ -354,11 +371,14 @@ class ScoringEngine:
 
     def _gen_row_limit(self, rows: List[List[int]], max_new: int) -> int:
         """Rows per generate dispatch so the KV caches and the prefill's
-        transients fit device memory: the JAX engine's per-row estimate
-        (engine.py:947-1007, decoder kind) against the memory free on the
-        card (``torch.cuda.mem_get_info`` plus what PyTorch's allocator holds
-        unused), less 2 GiB, at 70%. Elsewhere the JAX fallback of 16 GiB
-        less the weights. An estimate: a device OOM halves the cap."""
+        transients fit device memory. On the card: the memory free there
+        (``torch.cuda.mem_get_info`` plus what PyTorch's allocator holds
+        unused), less 2 GiB, at 70%, less one prefill piece's transients (a
+        dispatch prefills at most ``max_batch_tokens // L`` rows at a time),
+        over a row's cache. Elsewhere the JAX engine's per-row estimate
+        (engine.py:947-1007, decoder kind: every row's cache and transients)
+        against its fallback of 16 GiB less the weights. An estimate: a
+        device OOM halves the cap."""
         cfg = self.cfg
         L = self._cap_len(_bucket(max(len(r) for r in rows), self.len_buckets), 0)
         bpe = 2  # bf16
@@ -380,11 +400,9 @@ class ScoringEngine:
         ffn = ffn_live * F_
         if cfg.has_experts:
             ffn = cfg.num_experts_per_tok * (2 * cfg.hidden_size + 3 * cfg.moe_intermediate_size)
-        per_row = (
-            cfg.num_hidden_layers * cfg.num_key_value_heads
-            * cfg.head_dim_ * (L + max_new) * 2 * kv_bpe  # self K/V
-            + (ffn + 10 * cfg.hidden_size) * L * bpe
-        )
+        cache_row = (cfg.num_hidden_layers * cfg.num_key_value_heads
+                     * cfg.head_dim_ * (L + max_new) * 2 * kv_bpe)  # self K/V
+        prefill_row = (ffn + 10 * cfg.hidden_size) * L * bpe
         if self.device.type == "cuda":
             free_b, _ = torch.cuda.mem_get_info(self.device)
             free_b += (torch.cuda.memory_reserved(self.device)
@@ -392,10 +410,11 @@ class ScoringEngine:
             # The kept decode buffers: reused at their shape, freed at another.
             free_b += self._dstate.nbytes() if self._dstate is not None else 0
             free = max(free_b - 2 * 1024**3, 1024**3) * 0.7
-        else:
-            limit = 16 * 1024**3
-            free = max(limit - self._params_bytes() - 2 * 1024**3, 1024**3) * 0.7
-        return max(1, int(free // per_row))
+            piece = min(len(rows), max(1, self.max_batch_tokens // L))
+            return max(1, int((free - piece * prefill_row) // cache_row))
+        limit = 16 * 1024**3
+        free = max(limit - self._params_bytes() - 2 * 1024**3, 1024**3) * 0.7
+        return max(1, int(free // (cache_row + prefill_row)))
 
     def _decode_state(self, B: int, T: int) -> "gen_mod.DecodeState":
         """The kept decode buffers for B rows over a cache of T positions: the
@@ -713,7 +732,10 @@ class ScoringEngine:
                 learned = self._learned_row_caps.get(cap_key)
                 if learned is not None:
                     row_limit = min(row_limit, learned)
-                queue = list(self._chunks(prompt_rows, row_limit))
+                # Greedy dispatches decode on the kept buffers and prefill in
+                # pieces: memory alone bounds their rows.
+                pieces = sampling is None and not self.spec_lookup
+                queue = list(self._chunks(prompt_rows, row_limit, pieces))
 
             def emit(off: int, toks: np.ndarray) -> None:
                 with span("engine.emit"):
@@ -784,8 +806,8 @@ class ScoringEngine:
                             row_limit)
                         self._drop_decode_state()
                         torch.cuda.empty_cache()
-                        queue = [(off + i, sub) for i, sub in self._chunks(chunk, row_limit)
-                                 ] + queue
+                        queue = [(off + i, sub)
+                                 for i, sub in self._chunks(chunk, row_limit, pieces)] + queue
                         continue
                     emit(off, toks)
             return results, ntokens
@@ -797,7 +819,15 @@ class ScoringEngine:
         [n, max_new_tokens]. Everything that can exhaust device memory (the
         kept decode buffers and their capture, prefill, decode, fetch)
         happens here, so generate's backoff can retry the chunk smaller.
-        ``sampling`` is (temperature, seed)."""
+        ``sampling`` is (temperature, seed).
+
+        The rows are laid out once (shared prefixes or left padding). A
+        greedy dispatch of more rows than a prefill piece holds
+        (:meth:`_rows_per`: the token cap's rows) lays them out at its own
+        row count and prefills them piece by piece into row slices of one
+        kept decode state of a :meth:`_row_ladder` rung of rows; the state's
+        rows past the chunk's start done, with no valid key, and are not
+        prefilled. Every other dispatch prefills its batch bucket at once."""
         chunked = bool(chunk_tokens) and chunk_tokens < max_new_tokens or sampling is not None
         kvq = self.cfg.kv_quant
         spec = self.spec_lookup > 0
@@ -809,90 +839,119 @@ class ScoringEngine:
         kept = sampling is None and not spec
         if not kept:
             self._drop_decode_state()
-        grp = self._group(chunk, b_cap=row_limit)
+        n = len(chunk)
+        piece = self._rows_per(chunk, row_limit)
+        pieces = kept and n > piece
+        b_cap = n if pieces else row_limit
+        grp = self._group(chunk, b_cap=b_cap)
         if grp is not None:
-            n, (pids, pmask, gidx, sids, smask), host = grp
-            B = sids.shape[0]
+            _, (pids, pmask, gidx, sids, smask), host = grp
+            laid = sids.shape[0]
             prompt_len = pids.shape[1] + sids.shape[1]
             # Cross-wave prefix cache: cache-assembled prefix K/V instead of
             # the prefix forward (the *_pre programs).
             pre = self._pkv_assemble(host[0], pids.shape[1])
+            suffix = "_shared" if pre is None else "_pre"
         else:
-            ids, mask, n, B = self._pad_batch(chunk, left=True, b_cap=row_limit)
+            ids, mask, _, laid = self._pad_batch(chunk, left=True, b_cap=b_cap)
             prompt_len = ids.shape[1]
             ids, mask = self._to_device(ids, mask)
+            suffix = ""
+        B = laid
+        if pieces:
+            B = _bucket(n, self._row_ladder())
+            B = n if row_limit is not None and B > row_limit else B
         eos = int(self.cfg.eos_token_id)
-        st = bufs = None
+        T = prompt_len + mn_pad
+        st = None
         if kept:
-            st = self._decode_state(B, prompt_len + mn_pad)
-            bufs = (st.kc, st.vc)
+            st = self._decode_state(B, T)
             steps = min(chunk_tokens, max_new_tokens) if chunked else max_new_tokens
             # Captured before the prefill fills the buffers.
             if st.graph is None and gen_mod.graph_wanted(self.model, steps):
                 st.capture(self.model, eos)
                 self.graph_stats["captures"] += 1
-        if grp is not None:
-            with span("engine.launch"):
-                if pre is not None:
-                    ks, vs = pre
-                    suffix = "_pre"
+        temperature, k_pref, k_dec = 0.0, None, None
+        if sampling is not None:
+            temperature = sampling[0]
+            k_pref, k_dec = gen_mod._fold(sampling[1], 0), gen_mod._fold(sampling[1], 1)
+        bounds = [(r, min(n, r + piece)) for r in range(0, n, piece)] if pieces else [(0, laid)]
+        parts = []
+        with span("engine.launch"):
+            if grp is not None:
+                ks, vs = pre if pre is not None else gen_mod.decoder_prefix_kv(
+                    self.model, pids, pmask)
+            for r0, r1 in bounds:
+                bufs = None if st is None else (gen_mod._rows(st.kc, r0, r1),
+                                                gen_mod._rows(st.vc, r0, r1))
+                if grp is not None:
+                    g = gidx[r0:r1]
+                    last_h, cache = gen_mod.decoder_shared_prefill(
+                        self.model, ks.index_select(1, g), vs.index_select(1, g),
+                        pmask.index_select(0, g), sids[r0:r1], smask[r0:r1], mn_pad,
+                        kv_quant=kvq, bufs=bufs)
+                    logits = self.model.lm_logits(last_h)
                 else:
-                    ks, vs = gen_mod.decoder_prefix_kv(self.model, pids, pmask)
-                    suffix = "_shared"
-                last_h, cache = gen_mod.decoder_shared_prefill(
-                    self.model, ks.index_select(1, gidx), vs.index_select(1, gidx),
-                    pmask.index_select(0, gidx), sids, smask, mn_pad, kv_quant=kvq, bufs=bufs)
-                logits = self.model.lm_logits(last_h)
-            hist_args = ("shared", (pids, pmask, gidx, sids, smask))
-        else:
-            with span("engine.launch"):
-                logits, cache = gen_mod.decoder_prefill(self.model, ids, mask, mn_pad,
-                                                        kv_quant=kvq, bufs=bufs)
-            suffix = ""
-            hist_args = ("plain", (ids, mask))
-        if spec:
-            self.programs["dec_prefill" + suffix] += 1
-            hist = self._spec_history(*hist_args, prompt_len + mn_pad)
-            return self._decode_spec_chunked(torch.argmax(logits, dim=-1), cache, hist, B,
-                                             prompt_len, n, max_new_tokens, chunk_tokens or 256,
-                                             stop_strings)
-        if chunked:
-            self.programs["dec_prefill" + suffix] += 1
-            k_pref = k_dec = None
-            temperature = 0.0
-            if sampling is not None:
-                temperature = sampling[0]
-                k_pref, k_dec = gen_mod._fold(sampling[1], 0), gen_mod._fold(sampling[1], 1)
-            tok = gen_mod._pick(logits, temperature, k_pref)
-            return self._decode_chunked(tok, cache, B, prompt_len, n, max_new_tokens,
-                                        chunk_tokens or max_new_tokens, stop_strings,
-                                        temperature, k_dec, state=st)
-        self.programs["dec_gen" + suffix] += 1
-        first = torch.argmax(logits, dim=-1)
+                    logits, cache = gen_mod.decoder_prefill(
+                        self.model, ids[r0:r1], mask[r0:r1], mn_pad, kv_quant=kvq, bufs=bufs)
+                parts.append((torch.argmax(logits, dim=-1) if sampling is None
+                              else gen_mod._pick(logits, temperature, k_pref), cache))
+        first, cache = parts[0]
+        if st is not None:
+            # The pieces' first tokens, key masks and positions fill the
+            # state's rows; rows past the last piece hold no valid key.
+            first = torch.full((B,), int(self.cfg.pad_token_id), device=self.device)
+            kmask = torch.zeros((B, T), dtype=torch.bool, device=self.device)
+            pos = torch.zeros((B,), dtype=torch.long, device=self.device)
+            for (r0, r1), (tok, c) in zip(bounds, parts):
+                first[r0:r1], kmask[r0:r1], pos[r0:r1] = tok, c[2], c[3]
+            end = bounds[-1][1]
+            gen_mod._zero(gen_mod._rows(st.kc, end, B), gen_mod._rows(st.vc, end, B))
+            cache = (st.kc, st.vc, kmask, pos)
         # The batch's padding rows start done: they emit pad, and routed-expert
         # layers do not count them as live.
         pad_rows = torch.arange(B, device=self.device) >= n
-        out, _ = self._decode_chunk(first, cache, prompt_len, 0, max_new_tokens, done=pad_rows,
-                                    state=st)
-        with span("engine.readback"):
-            # A copy: on the CPU ``.cpu()`` would share the kept buffers,
-            # which the next dispatch of the shape overwrites.
-            return out[:n].cpu().numpy().copy()
+        if spec:
+            self.programs["dec_prefill" + suffix] += 1
+            hist = self._spec_history(*(("shared", (pids, pmask, gidx, sids, smask))
+                                        if grp is not None else ("plain", (ids, mask))), T)
+            toks = self._decode_spec_chunked(first, cache, hist, B, prompt_len, n,
+                                             max_new_tokens, chunk_tokens or 256, stop_strings)
+        elif chunked:
+            self.programs["dec_prefill" + suffix] += 1
+            toks = self._decode_chunked(first, cache, B, prompt_len, n, max_new_tokens,
+                                        chunk_tokens or max_new_tokens, stop_strings,
+                                        temperature, k_dec, state=st,
+                                        done=pad_rows if pieces else None)
+        else:
+            self.programs["dec_gen" + suffix] += 1
+            out, _ = self._decode_chunk(first, cache, prompt_len, 0, max_new_tokens,
+                                        done=pad_rows, state=st)
+            with span("engine.readback"):
+                # A copy: on the CPU ``.cpu()`` would share the kept buffers,
+                # which the next dispatch of the shape overwrites.
+                toks = out[:n].cpu().numpy().copy()
+        for key, v in (("decodes", 1), ("pieces", len(bounds)), ("rows", n), ("slots", B)):
+            self.wave_stats[key] += v
+        return toks
 
     def _decode_chunked(self, tok, cache, B: int, prompt_len: int, n: int,
                         max_new_tokens: int, chunk_tokens: int,
                         stop_strings: Sequence[str], temperature: float = 0.0,
                         key: Optional[int] = None,
-                        state: Optional["gen_mod.DecodeState"] = None) -> np.ndarray:
+                        state: Optional["gen_mod.DecodeState"] = None,
+                        done: Optional[torch.Tensor] = None) -> np.ndarray:
         """Decode from a prefilled cache in chunks of ``chunk_tokens``;
         between chunks the host decodes each live row and freezes those
         whose text holds a stop string (or EOS). Without stop strings, and
         with the tokenizer's EOS the model's, every freeze happens on the
         device, so chunk i+1 is enqueued before chunk i is read back; the
         tokens are the same either way. ``key`` seeds sampling, per global
-        step; ``state`` holds the cache (the kept decode buffers)."""
+        step; ``state`` holds the cache (the kept decode buffers); ``done``
+        [B] marks rows frozen from the start (none by default)."""
         eos = int(self.cfg.eos_token_id)
-        done = torch.zeros((B,), dtype=torch.bool, device=self.device)
+        if done is None:
+            done = torch.zeros((B,), dtype=torch.bool, device=self.device)
         pieces: List[np.ndarray] = []
         offset = 0
         pipelined = not stop_strings and self.tokenizer.eos_id == eos

@@ -175,6 +175,18 @@ def _layer(c: Cache, i: int) -> Cache:
     return c[i] if isinstance(c, torch.Tensor) else (c[0][i], c[1][i])
 
 
+def _rows(c: Cache, r0: int, r1: int) -> Cache:
+    """Rows r0..r1-1 of a cache half [Ld, B, ...], as views."""
+    return c[:, r0:r1] if isinstance(c, torch.Tensor) else (c[0][:, r0:r1], c[1][:, r0:r1])
+
+
+def _zero(*halves: Cache) -> None:
+    """Zero cache halves in place."""
+    for half in halves:
+        for leaf in (half,) if isinstance(half, torch.Tensor) else half:
+            leaf.zero_()
+
+
 def _fold(key: int, data: int) -> int:
     """A new 63-bit seed from ``key`` and ``data`` (splitmix64 finalizer):
     the port's ``jax.random.fold_in``, keying one sample stream per
@@ -291,15 +303,13 @@ def _act_dtype(model: Decoder) -> torch.dtype:
 
 def _new_cache(model: Decoder, B: int, T: int, dtype, mode: Optional[str], bufs=None):
     """The (k, v) cache halves of B rows over T positions, zeroed: newly
-    allocated, or ``bufs`` (a :class:`DecodeState`'s halves of that shape)
-    zeroed in place."""
+    allocated, or ``bufs`` (a :class:`DecodeState`'s halves of that shape,
+    or views of B of its rows, :func:`_rows`) zeroed in place."""
     cfg = model.cfg
     shape = (cfg.num_hidden_layers, B, cfg.num_key_value_heads, T, cfg.head_dim_)
     if bufs is None:
         return tuple(_cache_alloc(*shape, dtype, model.final_ln.device, mode) for _ in range(2))
-    for half in bufs:
-        for leaf in (half,) if isinstance(half, torch.Tensor) else half:
-            leaf.zero_()
+    _zero(*bufs)
     return bufs
 
 

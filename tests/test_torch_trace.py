@@ -333,4 +333,5 @@ def test_cli_event_log_carries_spans_and_pad_stats(tmp_path):
     pad = done["pad_stats"]
     assert 0 < pad["real_tokens"] < pad["slot_tokens"]
     assert done["graph_stats"] == {"captures": 0, "replays": 0, "eager_steps": 0}
+    assert done["wave_stats"] == {"decodes": 0, "pieces": 0, "rows": 0, "slots": 0}
     assert os.listdir(prof) and not metering.TRACER.on
